@@ -1,0 +1,102 @@
+"""Convert JAX (flax) detector parameters into the port's parameter dict.
+
+The flax tree is nested dicts of arrays; the port's dict is flat, keyed by
+module path (``backbone.stem1.weight``). Rules:
+
+- ``<m>/Conv_0/kernel`` (HWIO)        -> ``<m>.weight`` (OIHW)
+- ``<m>/GroupNorm_0/{scale,bias}``    -> ``<m>.gn_scale`` / ``<m>.gn_bias``
+- ``<m>/ConvTranspose_0/kernel``      -> ``<m>.up_weight``: spatially flipped,
+  then ``(in, out, kh, kw)``; its bias -> ``<m>.up_bias``
+- any other 4D ``kernel`` (1x1 convs) -> ``<m>.weight`` (OIHW)
+- ``gates_kernel`` (HWIO, kept whole) -> OIHW; the ConvLSTM slices it at
+  its input width
+- every other leaf keeps its name.
+
+Floating leaves are cast up to fp32 (the committed fixture checkpoint
+stores fp16 to stay small).
+"""
+
+from __future__ import annotations
+
+from pathlib import Path
+
+import numpy as np
+import torch
+
+_RENAME = {
+    ("Conv_0", "kernel"): "weight",
+    ("GroupNorm_0", "scale"): "gn_scale",
+    ("GroupNorm_0", "bias"): "gn_bias",
+    ("ConvTranspose_0", "kernel"): "up_weight",
+    ("ConvTranspose_0", "bias"): "up_bias",
+}
+
+
+def _convert_leaf(name: str, arr: np.ndarray) -> np.ndarray:
+    if np.issubdtype(arr.dtype, np.floating):
+        arr = arr.astype(np.float32)
+    if name == "up_weight":
+        return np.ascontiguousarray(arr[::-1, ::-1].transpose(2, 3, 0, 1))
+    if name in ("weight", "gates_kernel") and arr.ndim == 4:
+        return np.ascontiguousarray(arr.transpose(3, 2, 0, 1))
+    return arr
+
+
+def params_from_jax(tree: dict, device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
+    """Flax param tree (nested dicts of numpy-convertible arrays) -> the
+    port's flat parameter dict of fp32 tensors on ``device``."""
+    out: dict[str, torch.Tensor] = {}
+
+    def walk(node, path: tuple[str, ...]):
+        for key, val in node.items():
+            if isinstance(val, dict):
+                walk(val, path + (key,))
+                continue
+            mod, name = path, key
+            if path and (path[-1], key) in _RENAME:
+                mod, name = path[:-1], _RENAME[(path[-1], key)]
+            elif key == "kernel":
+                name = "weight"
+            arr = _convert_leaf(name, np.asarray(val))
+            out[".".join(mod + (name,))] = torch.tensor(arr, device=device)
+
+    walk(tree, ())
+    return out
+
+
+def load_flax_params(path: str | Path) -> dict:
+    """Read a flax msgpack checkpoint (e.g. ``fixtures/hard_nano_ckpt.pt``)
+    and return its param tree as nested dicts of numpy arrays. Accepts a
+    params-only file (``{"params": ...}``) or a full train state
+    (``{"state": {"params": ...}}``)."""
+    try:
+        import msgpack
+    except ImportError as e:
+        raise ImportError(
+            "load_flax_params needs the 'msgpack' package to read flax "
+            "checkpoints; install it or convert the checkpoint elsewhere"
+        ) from e
+
+    raw = msgpack.unpackb(Path(path).read_bytes(), ext_hook=_ext_hook, raw=False,
+                          strict_map_key=False)
+    if "params" in raw:
+        return raw["params"]
+    if "state" in raw and "params" in raw["state"]:
+        return raw["state"]["params"]
+    raise KeyError(f"{path}: no 'params' or 'state/params' entry")
+
+
+# flax.serialization's msgpack extension codes for arrays and numpy scalars.
+_EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
+
+
+def _ext_hook(code: int, data: bytes):
+    """Decode flax's msgpack extensions: an ndarray or numpy scalar is
+    packed as (shape, dtype name, raw bytes)."""
+    import msgpack
+
+    if code not in (_EXT_NDARRAY, _EXT_NPSCALAR):
+        raise ValueError(f"unsupported msgpack extension {code} in a flax checkpoint")
+    shape, dtype_name, buf = msgpack.unpackb(data, raw=True)
+    arr = np.frombuffer(buf, dtype=np.dtype(dtype_name.decode())).reshape(shape)
+    return arr[()] if code == _EXT_NPSCALAR else arr

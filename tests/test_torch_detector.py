@@ -1,0 +1,202 @@
+"""The whole ported detector against the JAX package (fp32, CPU).
+
+- A tiny random-init model (yolo11n, width 0.25) over two chained calls
+  (carried state) and an all_steps call, compared map by map and spiking
+  block by spiking block.
+- The committed fixture checkpoint (fixtures/hard_nano_ckpt.pt) loaded by
+  flax on the JAX side and by convert.py on the port's, compared through
+  decode + NMS on seeded 128x160 frames.
+
+Tolerances: both sides run the same fp32 math, but XLA and PyTorch sum
+convs in different orders (~1e-6 relative), so a spike may flip where a
+membrane sits that close to threshold; the spike-mismatch share of every
+block is held to <= 1e-3, and continuous outputs to 1e-3.
+"""
+
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from snn_object_detectionddp_tpu import config as jconfig
+from snn_object_detectionddp_tpu.models.detector import Detector as JDetector
+from snn_object_detectionddp_tpu.models.layers import SpikingConvBlock as JSpiking
+from snn_object_detectionddp_tpu.ops.nms import batched_nms as jnms
+from snn_object_detectionddp_tpu_torch import config as tconfig
+from snn_object_detectionddp_tpu_torch.convert import load_flax_params, params_from_jax
+from snn_object_detectionddp_tpu_torch.models.detector import Detector as TDetector
+from snn_object_detectionddp_tpu_torch.models.layers import SpikingConvBlock as TSpiking
+from snn_object_detectionddp_tpu_torch.ops.nms import batched_nms as tnms
+
+REPO = Path(__file__).resolve().parents[1]
+MAX_SPIKE_MISMATCH = 1e-3
+
+
+def _tiny_cfgs():
+    cfgs = []
+    for mod in (jconfig, tconfig):
+        cfg = mod.Config()
+        cfg.model.num_classes = 3
+        cfg.model.yolo_model_name = "yolo11n.pt"
+        cfg.model.width_mult = 0.25
+        cfg.model.hyp.reg_max = 8
+        cfg.runtime.precision = "f32"
+        cfgs.append(cfg)
+    return cfgs
+
+
+def _jax_forward(det, all_steps):
+    """Jitted JAX forward capturing every spiking block's (spikes, v_final):
+    one whole-model compile per (all_steps, input shape)."""
+
+    def fwd(params, frames, state):
+        (raw, new_state), vs = det.module.apply(
+            {"params": params}, frames, state, all_steps=all_steps,
+            capture_intermediates=lambda mdl, _: isinstance(mdl, JSpiking),
+            mutable=["intermediates"],
+        )
+        return raw, new_state, vs["intermediates"]
+
+    return jax.jit(fwd)
+
+
+def _jax_run(fwd, params, frames, state):
+    raw, new_state, inter = fwd(params, jnp.asarray(frames), state)
+    spikes = {}
+
+    def walk(tree, prefix):
+        for k, v in tree.items():
+            if k == "__call__":
+                spikes[prefix.rstrip(".")] = np.asarray(v[0][0])
+            elif isinstance(v, dict):
+                walk(v, prefix + k + ".")
+
+    walk(inter, "")
+    return raw, new_state, spikes
+
+
+def _port_run(det, params, frames, state, all_steps=False):
+    spikes = {}
+    hooks = [
+        m.register_forward_hook(
+            lambda mod, inp, out, name=name: spikes.__setitem__(name, out[0].numpy())
+        )
+        for name, m in det.module.named_modules() if isinstance(m, TSpiking)
+    ]
+    try:
+        raw, new_state = det.apply(params, torch.from_numpy(frames), state, all_steps=all_steps)
+    finally:
+        for h in hooks:
+            h.remove()
+    return raw, new_state, spikes
+
+
+def _check_call(name, jout, tout, report):
+    raw_j, _, sp_j = jout
+    raw_t, _, sp_t = tout
+    assert set(sp_j) == set(sp_t) and len(sp_t) == 17  # yolo11n: 8 backbone + 9 unet blocks
+    for block in sp_t:
+        share = float(np.mean(sp_t[block] != sp_j[block]))
+        report[f"{name}/{block}"] = share
+        assert share <= MAX_SPIKE_MISMATCH, (name, block, share)
+    for r_t, r_j in zip(raw_t, raw_j):
+        np.testing.assert_allclose(r_t.numpy(), np.asarray(r_j), atol=1e-3, rtol=1e-3,
+                                   err_msg=name)
+
+
+def test_detector_matches_jax_with_carried_state_and_all_steps(capsys):
+    jcfg, tcfg = _tiny_cfgs()
+    jdet = JDetector.from_config(jcfg)
+    tdet = TDetector.from_config(tcfg, device="cpu")
+    jparams = jdet.init_params(jax.random.PRNGKey(0))
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
+    assert set(tparams) == {n for n, _ in tdet.module.named_parameters()}
+
+    rng = np.random.RandomState(0)
+    window = rng.rand(2, 2, 64, 64, 3).astype(np.float32)  # (T, B, H, W, 3)
+    step = rng.rand(2, 2, 64, 64, 3).astype(np.float32)
+    chunk = rng.rand(2, 2, 64, 64, 3).astype(np.float32)
+    report = {}
+    # JAX: the first call gets an explicit zero state (== None in both
+    # packages), so the first two calls share one compiled program.
+    fwd, fwd_all = _jax_forward(jdet, False), _jax_forward(jdet, True)
+    struct = jax.eval_shape(lambda p, f: jdet.apply(p, f)[1], jparams, jnp.asarray(window))
+    zeros = jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype), struct)
+
+    j1 = _jax_run(fwd, jparams, window, zeros)
+    t1 = _port_run(tdet, tparams, window, None)
+    _check_call("window", j1, t1, report)
+    # Carried state: the second call continues from each side's own state.
+    j2 = _jax_run(fwd, jparams, step, j1[1])
+    t2 = _port_run(tdet, tparams, step, t1[1])
+    _check_call("carried", j2, t2, report)
+    j3 = _jax_run(fwd_all, jparams, chunk, j2[1])
+    t3 = _port_run(tdet, tparams, chunk, t2[1], all_steps=True)
+    assert t3[0][0].shape[0] == 2 * 2  # one map per frame of the chunk (T*B)
+    _check_call("all_steps", j3, t3, report)
+
+    # Final recurrent state, leaf by leaf (same tree structure).
+    leaves_j = jax.tree.leaves(j3[1])
+    leaves_t = jax.tree.leaves(jax.tree.map(lambda x: x.numpy(), t3[1]))
+    assert len(leaves_j) == len(leaves_t)
+    for lj, lt in zip(leaves_j, leaves_t):
+        assert np.mean(np.abs(np.asarray(lj) - lt) > 1e-3) <= MAX_SPIKE_MISMATCH
+    with capsys.disabled():
+        worst = max(report, key=report.get)
+        print(f"\nspike-mismatch share per block: max {report[worst]:.2e} ({worst}), "
+              f"{sum(v > 0 for v in report.values())} of {len(report)} block-calls nonzero")
+
+
+def test_fixture_checkpoint_through_convert_matches_jax():
+    from flax import serialization
+
+    ckpt = REPO / "fixtures/hard_nano_ckpt.pt"
+    jcfg = jconfig.load_config(REPO / "scripts/hard_nano.yaml")
+    tcfg = tconfig.load_config(REPO / "scripts/hard_nano.yaml")
+    assert jcfg.to_dict() == tcfg.to_dict()
+    # fp32 on both sides: the comparison is of the algorithm, not of two
+    # frameworks' bf16 conv rounding.
+    jcfg.runtime.precision = tcfg.runtime.precision = "f32"
+    jdet = JDetector.from_config(jcfg)
+    tdet = TDetector.from_config(tcfg, device="cpu")
+
+    template = jax.eval_shape(jdet.init_params, jax.random.PRNGKey(0))
+    raw = serialization.msgpack_restore(ckpt.read_bytes())
+    jparams = jax.tree.map(lambda t, r: np.asarray(r, t.dtype), template,
+                           serialization.from_state_dict(template, raw["params"]))
+    tparams = params_from_jax(load_flax_params(ckpt), "cpu")
+    for k, v in params_from_jax(jax.tree.map(np.asarray, jparams), "cpu").items():
+        assert torch.equal(v, tparams[k]), k
+
+    frames_u8 = np.random.RandomState(1).randint(0, 256, (1, 2, 128, 160, 3), np.uint8)
+    frames = frames_u8.transpose(1, 0, 2, 3, 4).astype(np.float32) / 255.0
+    raw_j, _ = jax.jit(jdet.apply)(jparams, jnp.asarray(frames))
+    raw_t, _ = tdet.apply(tparams, torch.from_numpy(frames))
+    kw = dict(conf_thres=0.05, iou_thres=0.45, max_det=50)
+    out_j = jnms(*jdet.decode(raw_j, image_hw=(128, 160)), **kw)
+    out_t = tnms(*tdet.decode(raw_t, image_hw=(128, 160)), **kw)
+    valid = out_t["valid"].numpy()
+    np.testing.assert_array_equal(valid, np.asarray(out_j["valid"]))
+    assert valid.sum() > 0
+    np.testing.assert_array_equal(out_t["classes"].numpy(), np.asarray(out_j["classes"]))
+    np.testing.assert_allclose(out_t["scores"].numpy(), np.asarray(out_j["scores"]), atol=1e-4)
+    np.testing.assert_allclose(out_t["boxes"].numpy(), np.asarray(out_j["boxes"]), atol=1e-2)
+
+
+@pytest.mark.parametrize("name", ["config.yaml", "scripts/hard_nano.yaml",
+                                  "scripts/flagship_demo.yaml", "scripts/flagship_hard.yaml"])
+def test_configs_load_identically(name):
+    assert tconfig.load_config(REPO / name).to_dict() == jconfig.load_config(REPO / name).to_dict()
+
+
+def test_config_defaults_and_validation_match():
+    assert tconfig.Config().to_dict() == jconfig.Config().to_dict()
+    for raw in ({"model": {"spike": {"reset": "sideways"}}}, {"runtime": {"precision": "f16"}},
+                {"model": {"nope": 1}}):
+        with pytest.raises(Exception) as ej:
+            jconfig.Config.from_dict(raw)
+        with pytest.raises(type(ej.value)):
+            tconfig.Config.from_dict(raw)
