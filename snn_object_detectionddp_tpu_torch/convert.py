@@ -1,4 +1,5 @@
-"""Convert JAX (flax) detector parameters into the port's parameter dict.
+"""Convert JAX (flax) detector parameters, and whole JAX train states, into
+the port's flat dicts.
 
 The flax tree is nested dicts of arrays; the port's dict is flat, keyed by
 module path (``backbone.stem1.weight``). Rules:
@@ -14,6 +15,9 @@ module path (``backbone.stem1.weight``). Rules:
 
 Floating leaves are cast up to fp32 (the committed fixture checkpoint
 stores fp16 to stay small).
+
+A train state (:func:`train_state_from_jax`) carries the AdamW moments
+``mu``/``nu`` in the params' tree layout, so the same rules convert them.
 """
 
 from __future__ import annotations
@@ -64,11 +68,45 @@ def params_from_jax(tree: dict, device: str | torch.device = "cuda") -> dict[str
     return out
 
 
-def load_flax_params(path: str | Path) -> dict:
-    """Read a flax msgpack checkpoint (e.g. ``fixtures/hard_nano_ckpt.pt``)
-    and return its param tree as nested dicts of numpy arrays. Accepts a
-    params-only file (``{"params": ...}``) or a full train state
-    (``{"state": {"params": ...}}``)."""
+def _find_adam_state(node) -> list[dict]:
+    """Every ``{"count", "mu", "nu"}`` node (optax ScaleByAdamState as a
+    state dict) under ``node``."""
+    if not isinstance(node, dict):
+        return []
+    if {"count", "mu", "nu"} <= set(node) and isinstance(node["mu"], dict):
+        return [node]
+    return [hit for v in node.values() for hit in _find_adam_state(v)]
+
+
+def train_state_from_jax(state_dict: dict, device: str | torch.device = "cuda") -> dict:
+    """A JAX train state as nested dicts of numpy-convertible leaves (what
+    ``flax.serialization.to_state_dict`` gives, and what the ``state`` entry
+    of a JAX ``latest.pt`` holds: ``params``, the optax ``opt_state`` with
+    AdamW's ``mu``/``nu``/``count``, ``step``, ``sched``) -> the port's
+    train state (train/step.py) on ``device``. Wrappers around the Adam
+    state (clip, masks, injected hyperparameters) hold nothing the port's
+    optimizer keeps and are dropped; an optimizer with several Adam states
+    (parameter groups) is not convertible and raises."""
+    adam = _find_adam_state(state_dict["opt_state"])
+    if len(adam) != 1:
+        raise ValueError(
+            f"expected one AdamW state (count/mu/nu) in opt_state, found {len(adam)}"
+        )
+    (adam,) = adam
+    params = params_from_jax(state_dict["params"], device)
+    mu = params_from_jax(adam["mu"], device)
+    nu = params_from_jax(adam["nu"], device)
+    if not (set(mu) == set(nu) == set(params)):
+        raise ValueError("AdamW moments do not cover the same leaves as params")
+    return {
+        "params": params,
+        "opt_state": {"mu": mu, "nu": nu, "count": int(np.asarray(adam["count"]))},
+        "step": int(np.asarray(state_dict["step"])),
+        "sched": tuple(float(c) for c in np.asarray(state_dict["sched"])),
+    }
+
+
+def _read_flax(path: str | Path) -> dict:
     try:
         import msgpack
     except ImportError as e:
@@ -77,13 +115,32 @@ def load_flax_params(path: str | Path) -> dict:
             "checkpoints; install it or convert the checkpoint elsewhere"
         ) from e
 
-    raw = msgpack.unpackb(Path(path).read_bytes(), ext_hook=_ext_hook, raw=False,
-                          strict_map_key=False)
+    return msgpack.unpackb(Path(path).read_bytes(), ext_hook=_ext_hook, raw=False,
+                           strict_map_key=False)
+
+
+def load_flax_params(path: str | Path) -> dict:
+    """Read a flax msgpack checkpoint (e.g. ``fixtures/hard_nano_ckpt.pt``)
+    and return its param tree as nested dicts of numpy arrays. Accepts a
+    params-only file (``{"params": ...}``) or a full train state
+    (``{"state": {"params": ...}}``)."""
+    raw = _read_flax(path)
     if "params" in raw:
         return raw["params"]
     if "state" in raw and "params" in raw["state"]:
         return raw["state"]["params"]
     raise KeyError(f"{path}: no 'params' or 'state/params' entry")
+
+
+def load_flax_state(path: str | Path) -> dict:
+    """Read a JAX ``latest.pt``/``best.pt`` (flax msgpack) and return
+    ``{"state", "epoch", "best_val_loss"}`` with the state as nested dicts
+    of numpy arrays, ready for :func:`train_state_from_jax`."""
+    raw = _read_flax(path)
+    if "opt_state" not in (raw.get("state") or {}):
+        raise KeyError(f"{path}: no 'state' entry with an optimizer state")
+    return {"state": raw["state"], "epoch": int(raw.get("epoch", 0)),
+            "best_val_loss": float(raw.get("best_val_loss", float("inf")))}
 
 
 # flax.serialization's msgpack extension codes for arrays and numpy scalars.

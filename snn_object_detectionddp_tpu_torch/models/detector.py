@@ -44,12 +44,17 @@ class SNNTemporalDetector(nn.Module):
         self.head = DetectHead(num_classes, feat, reg_max, dtype=dtype)
 
     def forward(self, frames_t: torch.Tensor, state: dict | None = None,
-                all_steps: bool = False):
+                all_steps: bool = False, state_only: bool = False):
+        """``state_only`` advances the recurrent state and returns
+        (None, state) without running the decoder and the head."""
         state = state or {}
         feats, bstate = self.backbone(frames_t, state.get("backbone"))
-        refined, ustate = self.unet(feats, state.get("unet"), all_steps=all_steps)
-        raw_maps = self.head(list(refined))
-        return raw_maps, {"backbone": bstate, "unet": ustate}
+        refined, ustate = self.unet(feats, state.get("unet"), all_steps=all_steps,
+                                    state_only=state_only)
+        new_state = {"backbone": bstate, "unet": ustate}
+        if state_only:
+            return None, new_state
+        return self.head(list(refined)), new_state
 
 
 def resolve_device(device: str | torch.device) -> torch.device:
@@ -123,10 +128,41 @@ class Detector:
     @torch.no_grad()
     def apply(self, params: dict, frames_t: torch.Tensor, state: dict | None = None,
               all_steps: bool = False):
+        """Gradient-free forward (serving, evaluation)."""
+        return self.apply_train(params, frames_t, state, all_steps=all_steps)
+
+    def apply_train(self, params: dict, frames_t: torch.Tensor, state: dict | None = None,
+                    all_steps: bool = False, state_only: bool = False):
+        """Forward that records a gradient where ``params`` (or the state)
+        require one: on the card the spiking blocks then run the
+        residual-saving forward and the backward kernel."""
         return torch.func.functional_call(
-            self.module, params, (frames_t, state), {"all_steps": all_steps},
-            strict=True,
+            self.module, params, (frames_t, state),
+            {"all_steps": all_steps, "state_only": state_only}, strict=True,
         )
+
+    @torch.no_grad()
+    def spike_rates(self, params: dict, frames_t: torch.Tensor) -> dict[str, float]:
+        """Mean firing rate of every spiking block for one batch — the SNN
+        activity/sparsity diagnostic (flat dict: 'backbone/stem1' -> rate).
+        One device-to-host copy for all blocks."""
+        from .layers import SpikingConvBlock
+
+        rates = {}
+
+        def record(name):
+            def hook(mod, inp, out):  # returns None: the output passes through
+                rates[name.replace(".", "/")] = out[0].float().mean()
+            return hook
+
+        hooks = [m.register_forward_hook(record(name))
+                 for name, m in self.module.named_modules() if isinstance(m, SpikingConvBlock)]
+        try:
+            self.apply(params, frames_t)
+        finally:
+            for h in hooks:
+                h.remove()
+        return dict(zip(rates, torch.stack(list(rates.values())).tolist())) if rates else {}
 
     def decode(self, raw_maps, image_hw: tuple[int, int] | None = None):
         """Raw maps -> (boxes_xyxy pixels, class scores); pass the true

@@ -1,15 +1,23 @@
-"""Leaky integrate-and-fire (LIF) neurons: forward dynamics for inference.
+"""Leaky integrate-and-fire (LIF) neurons with surrogate-gradient BPTT.
 
 Dynamics per timestep (soft reset):
     v' = decay * v + x
     s  = H(v' - threshold)
     v  = v' - s * threshold            (hard reset: v = v' * (1 - s))
 
-The membrane is fp32; spikes come back in the current's dtype. The
-normalize+LIF stage of every spiking block goes through
+The spike is a Heaviside step whose backward pass uses the SuperSpike
+fast-sigmoid surrogate ``dS/dv = 1 / (slope * |v - threshold| + 1)^2``.
+The membrane is fp32; spikes come back in the current's dtype.
+
+The normalize+LIF stage of every spiking block goes through
 :func:`run_affine_lif_tb`, which picks its implementation by the tensor's
-device: the hand-written CUDA kernel (kernels/affine_lif.py) for a CUDA
-tensor, :func:`affine_lif_tb_reference` for a CPU tensor.
+device and by whether a gradient is needed: on a CUDA tensor the
+hand-written kernels (kernels/affine_lif.py — forward, forward with the
+``v_pre`` residual, reverse-time backward), on a CPU tensor the plain
+versions in this module (:func:`affine_lif_tb_reference` and the
+functions it is built from). Kernel and plain version compute the same
+function: under a gradient both save the pre-reset membrane rounded to
+x's dtype and run the same reverse-time recurrence on it.
 """
 
 from __future__ import annotations
@@ -29,13 +37,38 @@ class LIFParams(NamedTuple):
     reset: str = "soft"  # "soft" | "hard"
 
 
+def surrogate_grad(v_shifted: torch.Tensor, slope: float) -> torch.Tensor:
+    """The SuperSpike surrogate derivative 1 / (slope*|v| + 1)^2."""
+    return 1.0 / torch.square(slope * v_shifted.abs() + 1.0)
+
+
+class _Spike(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, v_shifted: torch.Tensor, slope: float):
+        ctx.save_for_backward(v_shifted)
+        ctx.slope = slope
+        return (v_shifted >= 0).to(v_shifted.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        (v_shifted,) = ctx.saved_tensors
+        return g * surrogate_grad(v_shifted, ctx.slope), None
+
+
+def spike(v_shifted: torch.Tensor, slope: float = 4.0) -> torch.Tensor:
+    """Heaviside step H(v - theta): 1.0 where ``v_shifted >= 0`` else 0.0,
+    with the SuperSpike surrogate as its derivative."""
+    return _Spike.apply(v_shifted, slope)
+
+
 def lif_step(
     v: torch.Tensor, x: torch.Tensor, p: LIFParams
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """One membrane update. Returns (spikes in x's dtype, v_next in v's
-    dtype); the membrane arithmetic runs in v's dtype."""
+    """One membrane update, differentiable through the surrogate. Returns
+    (spikes in x's dtype, v_next in v's dtype); the membrane arithmetic
+    runs in v's dtype."""
     v_pre = p.decay * v + x.to(v.dtype)
-    s = (v_pre - p.threshold >= 0).to(v.dtype)
+    s = spike(v_pre - p.threshold, p.surrogate_slope)
     if p.reset == "soft":
         v_next = v_pre - s * p.threshold
     else:  # hard reset to zero
@@ -43,11 +76,136 @@ def lif_step(
     return s.to(x.dtype), v_next
 
 
+def lif_scan(
+    x_t: torch.Tensor, p: LIFParams, v0: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """LIF dynamics over a leading time axis: (T, ...) currents -> (spikes
+    (T, ...), final membrane (...)). ``v0`` is zeros when None. Autograd
+    through :func:`lif_step` gives BPTT."""
+    if v0 is None:
+        v0 = torch.zeros(x_t.shape[1:], dtype=torch.float32, device=x_t.device)
+    v, spikes = v0, []
+    for t in range(x_t.shape[0]):
+        s, v = lif_step(v, x_t[t], p)
+        spikes.append(s)
+    return torch.stack(spikes), v
+
+
 def _step_readout(s: torch.Tensor, v_next: torch.Tensor, p: LIFParams) -> torch.Tensor:
     """Per-step continuous readout ``v_next + s*threshold`` (the pre-reset
     membrane under soft reset) — what lets the decoder run on every step of
     a chunk (all-steps streaming)."""
     return v_next + s.to(v_next.dtype) * p.threshold
+
+
+def _zero_membrane(x4: torch.Tensor, bsz: int) -> torch.Tensor:
+    return torch.zeros((bsz,) + tuple(x4.shape[1:]), dtype=torch.float32,
+                       device=x4.device)
+
+
+def affine_lif_forward_reference(
+    x4: torch.Tensor, a: torch.Tensor, b: torch.Tensor, p: LIFParams,
+    v0: torch.Tensor, with_readouts: bool = False, with_vpre: bool = False,
+):
+    """Plain, gradient-free normalize+LIF forward: ``cur = x*a + b`` per
+    (t, b, c), then the LIF recurrence over T. Returns (spikes, v_final,
+    readouts or None, v_pre or None); the per-step outputs are
+    (T*B, H, W, C) in x's dtype — ``v_pre`` is the pre-reset membrane
+    rounded to x's dtype, the residual the backward runs on."""
+    t_steps, bsz = a.shape[0], a.shape[1]
+    v = v0
+    spikes, reads, vpres = [], [], []
+    for t in range(t_steps):
+        xt = x4[t * bsz : (t + 1) * bsz]
+        cur = xt.float() * a[t, :, None, None, :] + b[t, :, None, None, :]
+        v_pre = p.decay * v + cur
+        s = (v_pre - p.threshold >= 0).float()
+        if p.reset == "soft":
+            v = v_pre - s * p.threshold
+        else:
+            v = v_pre * (1.0 - s)
+        spikes.append(s.to(x4.dtype))
+        if with_readouts:
+            reads.append(_step_readout(s, v, p).to(x4.dtype))
+        if with_vpre:
+            vpres.append(v_pre.to(x4.dtype))
+    return (torch.cat(spikes, 0), v,
+            torch.cat(reads, 0) if with_readouts else None,
+            torch.cat(vpres, 0) if with_vpre else None)
+
+
+def affine_lif_backward_reference(
+    vpre4: torch.Tensor,  # (T*B, H, W, C) x's dtype: saved pre-reset membrane
+    x4: torch.Tensor,  # (T*B, H, W, C)
+    a: torch.Tensor,  # (T, B, C) fp32
+    g_s: torch.Tensor,  # (T*B, H, W, C) x's dtype: cotangent of the spikes
+    g_vfin: torch.Tensor,  # (B, H, W, C) fp32: cotangent of v_final
+    p: LIFParams,
+):
+    """Plain reverse-time surrogate BPTT of the normalize+LIF stage.
+    Returns (g_x in x's dtype, g_a, g_b (T, B, C) fp32, g_v0 fp32). Under
+    hard reset the spike is recomputed from the saved (rounded) ``v_pre``."""
+    t_steps, bsz = a.shape[0], a.shape[1]
+    gv = g_vfin
+    g_x, g_a, g_b = [None] * t_steps, [None] * t_steps, [None] * t_steps
+    for t in range(t_steps - 1, -1, -1):
+        sl = slice(t * bsz, (t + 1) * bsz)
+        v_pre = vpre4[sl].float()
+        shifted = v_pre - p.threshold
+        sur = surrogate_grad(shifted, p.surrogate_slope)
+        if p.reset == "soft":
+            dpost = 1.0 - p.threshold * sur
+        else:
+            dpost = (1.0 - (shifted >= 0).float()) - v_pre * sur
+        g_cur = gv * dpost + g_s[sl].float() * sur
+        g_x[t] = (g_cur * a[t, :, None, None, :]).to(x4.dtype)
+        g_a[t] = (g_cur * x4[sl].float()).sum((1, 2))
+        g_b[t] = g_cur.sum((1, 2))
+        gv = p.decay * g_cur
+    return torch.cat(g_x, 0), torch.stack(g_a), torch.stack(g_b), gv
+
+
+def backward_cotangents(ctx_x4: torch.Tensor, v_shape, g_s, g_vfin):
+    """What autograd hands a normalize+LIF backward, made into what the
+    backward takes: a missing cotangent becomes zeros, an expanded or
+    strided one is made contiguous, a wrong dtype or device raises."""
+    if g_s is None:
+        g_s = torch.zeros_like(ctx_x4)
+    if g_vfin is None:
+        g_vfin = torch.zeros(v_shape, dtype=torch.float32, device=ctx_x4.device)
+    if g_s.dtype != ctx_x4.dtype or g_vfin.dtype != torch.float32:
+        raise TypeError(
+            f"cotangents must be ({ctx_x4.dtype}, float32), got ({g_s.dtype}, {g_vfin.dtype})"
+        )
+    if g_s.device != ctx_x4.device or g_vfin.device != ctx_x4.device:
+        raise ValueError(f"cotangents on {g_s.device}/{g_vfin.device}, x on {ctx_x4.device}")
+    return g_s.contiguous(), g_vfin.contiguous()
+
+
+class _AffineLIFReference(torch.autograd.Function):
+    """Differentiable plain normalize+LIF: the CPU counterpart of
+    kernels/affine_lif.py::AffineLIF, same residuals, same recurrence."""
+
+    @staticmethod
+    def forward(ctx, x4, a, b, v0, p: LIFParams):
+        s, vfin, _, vpre = affine_lif_forward_reference(x4, a, b, p, v0, with_vpre=True)
+        ctx.save_for_backward(vpre, x4, a)
+        ctx.p = p
+        return s, vfin
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_s, g_vfin):
+        vpre, x4, a = ctx.saved_tensors
+        g_s, g_vfin = backward_cotangents(x4, (a.shape[1],) + tuple(x4.shape[1:]), g_s, g_vfin)
+        g_x, g_a, g_b, g_v0 = affine_lif_backward_reference(vpre, x4, a, g_s, g_vfin, ctx.p)
+        return g_x, g_a, g_b, g_v0, None
+
+
+def needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors
+    )
 
 
 def affine_lif_tb_reference(
@@ -58,27 +216,22 @@ def affine_lif_tb_reference(
     v0: torch.Tensor | None = None,  # (B, H, W, C) fp32
     with_readouts: bool = False,
 ):
-    """Plain PyTorch normalize+LIF: ``cur = x*a + b`` per (t, b, c), then
-    the LIF recurrence over T. Same contract as the JAX package's
-    ``affine_lif_unrolled_tb``: returns (spikes (T*B, H, W, C) in x's dtype,
-    v_final (B, H, W, C) fp32) plus, with ``with_readouts``, the per-step
-    readouts (T*B, H, W, C) in x's dtype."""
-    t_steps, bsz = a.shape[0], a.shape[1]
+    """Plain PyTorch normalize+LIF, differentiable. Same contract as the
+    JAX package's ``affine_lif_unrolled_tb``: returns (spikes (T*B, H, W, C)
+    in x's dtype, v_final (B, H, W, C) fp32) plus, with ``with_readouts``,
+    the per-step readouts (T*B, H, W, C) in x's dtype. Readouts under a
+    gradient are not implemented (training never asks for them)."""
     if v0 is None:
-        v0 = torch.zeros((bsz,) + tuple(x4.shape[1:]), dtype=torch.float32,
-                         device=x4.device)
-    v = v0
-    spikes, reads = [], []
-    for t in range(t_steps):
-        xt = x4[t * bsz : (t + 1) * bsz]
-        cur = xt.float() * a[t, :, None, None, :] + b[t, :, None, None, :]
-        s, v = lif_step(v, cur, p)
-        spikes.append(s.to(x4.dtype))
+        v0 = _zero_membrane(x4, a.shape[1])
+    if needs_grad(x4, a, b, v0):
         if with_readouts:
-            reads.append(_step_readout(s, v, p).to(x4.dtype))
-    if with_readouts:
-        return torch.cat(spikes, 0), v, torch.cat(reads, 0)
-    return torch.cat(spikes, 0), v
+            raise NotImplementedError(
+                "per-step readouts are not differentiable in this port; run "
+                "all_steps forwards under torch.no_grad()"
+            )
+        return _AffineLIFReference.apply(x4, a, b, v0, p)
+    s, v, reads, _ = affine_lif_forward_reference(x4, a, b, p, v0, with_readouts)
+    return (s, v, reads) if with_readouts else (s, v)
 
 
 def run_affine_lif_tb(
@@ -89,12 +242,22 @@ def run_affine_lif_tb(
     v0: torch.Tensor | None = None,
     with_readouts: bool = False,
 ):
-    """Normalize+LIF on the conv's (T*B, H, W, C) output, by device: a CPU
-    tensor takes the plain version, any other goes to the CUDA kernel
-    (which raises on what it cannot take). Both resets and the readouts
-    mode go through the kernel."""
+    """Normalize+LIF on the conv's (T*B, H, W, C) output. A CPU tensor
+    takes the plain version. Any other goes to the CUDA kernels, which
+    raise on what they cannot take: the residual-saving forward and the
+    reverse-time backward when a gradient is needed, the inference forward
+    (both resets, optional readouts) otherwise."""
     if x4.device.type == "cpu":
         return affine_lif_tb_reference(x4, a, b, p, v0, with_readouts)
-    from ..kernels.affine_lif import affine_lif_fwd
+    from ..kernels.affine_lif import AffineLIF, affine_lif_fwd
 
+    if needs_grad(x4, a, b, v0):
+        if with_readouts:
+            raise NotImplementedError(
+                "per-step readouts are not differentiable in this port; run "
+                "all_steps forwards under torch.no_grad()"
+            )
+        if v0 is None:
+            v0 = _zero_membrane(x4, a.shape[1])
+        return AffineLIF.apply(x4, a, b, v0, p)
     return affine_lif_fwd(x4, a, b, p, v0, with_readouts)

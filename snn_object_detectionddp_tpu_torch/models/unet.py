@@ -56,7 +56,11 @@ class TemporalUNet(nn.Module):
         self.out_p4 = Conv1x1(c2, ch_p4, dtype=dtype)
         self.out_p5 = Conv1x1(c3, ch_p5, dtype=dtype)
 
-    def forward(self, feats: tuple, state: dict | None = None, all_steps: bool = False):
+    def forward(self, feats: tuple, state: dict | None = None, all_steps: bool = False,
+                state_only: bool = False):
+        """``state_only`` stops after the recurrent part (encoder and
+        bottleneck) and returns (None, state): the decoder reads the state
+        but never writes it, so a chunk whose maps nobody needs skips it."""
         p3, p4, p5 = feats
         state = state or {}
         new_state: dict = {}
@@ -82,6 +86,8 @@ class TemporalUNet(nn.Module):
             new_state["bottleneck"] = v_final
             bott_seq = None if all_steps else membrane_readout(spikes, v_final, self.lif)
 
+        if state_only:
+            return None, new_state
         if all_steps:
             if self.bottleneck_kind == "convlstm":
                 bott = bott_seq.reshape((t * b,) + tuple(bott_seq.shape[2:]))

@@ -1,4 +1,4 @@
-"""Anchor points and distance->box decode for the anchor-free head.
+"""Anchor points and distance<->box transforms for the anchor-free head.
 
 Anchor points are in grid units of each scale, offset to cell centers by
 +0.5 (ultralytics ``make_anchors`` / ``dist2bbox`` semantics).
@@ -35,3 +35,13 @@ def dist2bbox(distance: torch.Tensor, anchor_points: torch.Tensor) -> torch.Tens
     lt = distance[..., :2]
     rb = distance[..., 2:]
     return torch.cat([anchor_points - lt, anchor_points + rb], -1)
+
+
+def bbox2dist(
+    bbox_xyxy: torch.Tensor, anchor_points: torch.Tensor, reg_max: int
+) -> torch.Tensor:
+    """xyxy boxes (..., A, 4) + anchors (A, 2) -> ltrb distances clipped to
+    [0, reg_max - 1 - 0.01] for DFL targets."""
+    lt = anchor_points - bbox_xyxy[..., :2]
+    rb = bbox_xyxy[..., 2:] - anchor_points
+    return torch.cat([lt, rb], -1).clamp(0.0, reg_max - 1 - 0.01)

@@ -29,13 +29,66 @@ def test_port_sources_found():
     names = {p.relative_to(REPO).as_posix() for p in SOURCES}
     assert "snn_object_detectionddp_tpu_torch/serve.py" in names
     assert "chip_smoke.py" in names
-    assert len(names) >= 15
+    assert "snn_object_detectionddp_tpu_torch/train/step.py" in names
+    assert "snn_object_detectionddp_tpu_torch/losses/detection.py" in names
+    assert len(names) >= 28
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(REPO).as_posix())
 def test_no_jax_imports(path):
     bad = _imported_roots(path) & set(FORBIDDEN)
     assert not bad, f"{path.name} imports {sorted(bad)}"
+
+
+OPTIONAL = ("yaml", "cv2", "msgpack", "tqdm", "tensorboardX")
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(REPO).as_posix())
+def test_optional_packages_are_imported_lazily(path):
+    """The card machine may lack these: a module may import them only
+    inside the function that needs them, never when it is imported."""
+    tree = ast.parse(path.read_text(), str(path))
+    top = set()
+    for node in tree.body:
+        if isinstance(node, ast.Import):
+            top.update(alias.name.split(".")[0] for alias in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            top.add(node.module.split(".")[0])
+    assert not top & set(OPTIONAL), f"{path.name} imports {sorted(top & set(OPTIONAL))} at import"
+
+
+def test_training_entry_points_default_to_cuda():
+    from snn_object_detectionddp_tpu_torch.convert import train_state_from_jax
+    from snn_object_detectionddp_tpu_torch.train import checkpoint
+
+    assert inspect.signature(train_state_from_jax).parameters["device"].default == "cuda"
+    assert inspect.signature(checkpoint.load_checkpoint).parameters["device"].default == "cuda"
+    assert inspect.signature(checkpoint.resume_or_init).parameters["device"].default == "cuda"
+
+
+def test_step_fns_run_on_the_detectors_device():
+    """make_step_fns takes no device: batches go to the detector's, which
+    defaults to the card (Detector.from_config) and raises without one."""
+    import numpy as np
+    import torch
+
+    from snn_object_detectionddp_tpu_torch.config import Config
+    from snn_object_detectionddp_tpu_torch.models.detector import Detector
+    from snn_object_detectionddp_tpu_torch.train import step
+
+    assert "device" not in inspect.signature(step.make_step_fns).parameters
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Detector.from_config(Config())
+    cfg = Config()
+    cfg.model.yolo_model_name, cfg.model.width_mult = "yolo11n.pt", 0.25
+    cfg.runtime.precision = "f32"
+    det = Detector.from_config(cfg, device="cpu")
+    tx, sched = step.make_optimizer(1e-3, 4)
+    batch = {"images": np.zeros((1, 1, 64, 64, 3), np.uint8),
+             "labels": np.zeros((1, 2, 5), np.float32), "label_mask": np.zeros((1, 2), bool)}
+    out = step.make_step_fns(det, tx, sched).eval_step(det.init_params(), batch)
+    assert out["loss"].device.type == "cpu"
 
 
 def test_entry_points_default_to_cuda():

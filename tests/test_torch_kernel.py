@@ -1,12 +1,18 @@
-"""The hand-written CUDA normalize+LIF kernel against its plain PyTorch
-version, on the card. Every test here needs an NVIDIA GPU and skips with
+"""The hand-written CUDA normalize+LIF kernels (inference forward,
+residual-saving forward, reverse-time backward) against their plain PyTorch
+versions, on the card. Every test here needs an NVIDIA GPU and skips with
 a reason elsewhere. The file imports no JAX, so on a card machine it runs
 without the JAX stack:
 
     python -m pytest tests/test_torch_kernel.py -m cuda --noconftest -q
 
-Tolerance: the kernel performs the same rounded fp32 operations as the
-plain version (no contracted multiply-adds), so outputs must be equal.
+Tolerance: the kernels perform the same rounded fp32 operations as the
+plain versions (no contracted multiply-adds, an IEEE division), so every
+per-element output (spikes, v_final, readouts, v_pre, g_x, g_v0) must be
+equal. The affine gradients da/db are sums over pixels taken in another
+order than torch.sum takes them: they are held to 1e-5 of the sum of the
+absolute terms (fp32 summation error grows with that sum, not with the
+possibly cancelled result).
 """
 
 import numpy as np
@@ -14,7 +20,15 @@ import pytest
 import torch
 
 from snn_object_detectionddp_tpu_torch.kernels import affine_lif as K
-from snn_object_detectionddp_tpu_torch.models.lif import LIFParams, affine_lif_tb_reference
+from snn_object_detectionddp_tpu_torch.models.lif import (
+    LIFParams,
+    affine_lif_backward_reference,
+    affine_lif_forward_reference,
+    affine_lif_tb_reference,
+    run_affine_lif_tb,
+)
+
+SUM_RTOL = 1e-5
 
 PARAMS = [LIFParams(), LIFParams(threshold=0.7, decay=0.9, reset="hard")]
 
@@ -43,10 +57,10 @@ def _inputs(t, b, h, w, c, dtype, seed=0):
 @pytest.mark.parametrize("readouts", [False, True])
 def test_kernel_equals_plain(cuda_device, p, dtype, shape, readouts):
     args = [t.to(cuda_device) for t in _inputs(*shape, dtype)]
-    before = K.launch_count
+    before = dict(K.launch_counts)
     got = K.affine_lif_fwd(args[0], args[1], args[2], p, args[3], readouts)
     ref = affine_lif_tb_reference(args[0], args[1], args[2], p, args[3], readouts)
-    assert K.launch_count == before + 1
+    assert K.launch_counts == {**before, "affine_lif_fwd": before["affine_lif_fwd"] + 1}
     assert len(got) == len(ref)
     for g, r in zip(got, ref):
         assert g.dtype == r.dtype and torch.equal(g, r)
@@ -76,3 +90,112 @@ def test_wrapper_rejects_bad_inputs(cuda_device):
         K.affine_lif_fwd(x, a.double(), b, LIFParams(), v0)
     with pytest.raises(ValueError, match="match"):
         K.affine_lif_fwd(x[:1], a, b, LIFParams(), v0)
+
+
+SHAPES = [(1, 2, 15, 20, 512), (3, 2, 7, 9, 24), (2, 1, 3, 5, 7), (5, 2, 13, 11, 48),
+          (4, 1, 3, 2, 2048)]
+SHAPE_IDS = ["vec", "vec_odd_hw", "scalar_c", "c48", "two_channel_tiles"]
+
+
+def _cotangents(x, v0, seed=1):
+    rng = np.random.RandomState(seed)
+    g_s = torch.from_numpy(rng.randn(*x.shape).astype(np.float32)).to(x.dtype)
+    g_v = torch.from_numpy(rng.randn(*v0.shape).astype(np.float32))
+    return g_s.to(x.device), g_v.to(x.device)
+
+
+def _assert_sums_close(got, terms_abs_sum, ref, name):
+    err = (got - ref).abs()
+    bound = SUM_RTOL * terms_abs_sum + 1e-30
+    assert (err <= bound).all(), f"{name}: max err/bound {(err / bound).max().item():.3g}"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", PARAMS, ids=["soft", "hard"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+def test_fwd_res_equals_plain(cuda_device, p, dtype, shape):
+    x, a, b, v0 = (t.to(cuda_device) for t in _inputs(*shape, dtype))
+    before = dict(K.launch_counts)
+    s, vpre, vfin = K.affine_lif_fwd_res(x, a, b, p, v0)
+    assert K.launch_counts == {**before, "affine_lif_fwd_res": before["affine_lif_fwd_res"] + 1}
+    s_r, vfin_r, _, vpre_r = affine_lif_forward_reference(x, a, b, p, v0, with_vpre=True)
+    assert vpre.dtype == x.dtype
+    assert torch.equal(s, s_r) and torch.equal(vfin, vfin_r) and torch.equal(vpre, vpre_r)
+    # and the inference forward gives the same spikes and membrane
+    s1, vfin1 = K.affine_lif_fwd(x, a, b, p, v0)
+    assert torch.equal(s, s1) and torch.equal(vfin, vfin1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", PARAMS, ids=["soft", "hard"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", SHAPES, ids=SHAPE_IDS)
+def test_bwd_equals_plain(cuda_device, p, dtype, shape):
+    x, a, b, v0 = (t.to(cuda_device) for t in _inputs(*shape, dtype))
+    _, vpre, _ = K.affine_lif_fwd_res(x, a, b, p, v0)
+    g_s, g_v = _cotangents(x, v0)
+    before = dict(K.launch_counts)
+    g_x, g_a, g_b, g_v0 = K.affine_lif_bwd(vpre, x, a, g_s, g_v, p)
+    assert K.launch_counts == {**before, "affine_lif_bwd": before["affine_lif_bwd"] + 1}
+    r_x, r_a, r_b, r_v0 = affine_lif_backward_reference(vpre, x, a, g_s, g_v, p)
+    assert g_x.dtype == x.dtype and torch.equal(g_x, r_x)
+    assert torch.equal(g_v0, r_v0)
+    # |terms| summed: recover g_cur from g_b's definition by a second plain
+    # pass with |.|: g_b sums g_cur, g_a sums g_cur * x.
+    t_steps, bsz, c = a.shape
+    ones = torch.ones_like(a)
+    gx_unit = affine_lif_backward_reference(vpre.float(), x.float(), ones, g_s.float(), g_v, p)[0]
+    g_cur = gx_unit.view(t_steps, bsz, *x.shape[1:])
+    xs = x.float().view_as(g_cur)
+    _assert_sums_close(g_b, g_cur.abs().sum((2, 3)), r_b, "g_b")
+    _assert_sums_close(g_a, (g_cur * xs).abs().sum((2, 3)), r_a, "g_a")
+    # two launches on the same inputs: bitwise-equal sums (no atomics)
+    again = K.affine_lif_bwd(vpre, x, a, g_s, g_v, p)
+    assert torch.equal(again[1], g_a) and torch.equal(again[2], g_b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", PARAMS, ids=["soft", "hard"])
+def test_autograd_function_matches_plain(cuda_device, p):
+    """The whole AffineLIF under torch.autograd.grad, through the
+    dispatcher, against the plain differentiable version on the card; one
+    output left unused so its cotangent arrives as None."""
+    x, a, b, v0 = (t.to(cuda_device).requires_grad_() for t in _inputs(3, 2, 7, 9, 24, torch.bfloat16))
+
+    def grads(fn, use_v):
+        s, v = fn(x, a, b, p, v0)
+        w = torch.linspace(0.5, 1.5, s.numel(), device=s.device).view_as(s).to(s.dtype)
+        loss = (s * w).float().sum() + (1.3 * v.sum() if use_v else 0.0)
+        return torch.autograd.grad(loss, (x, a, b, v0))
+
+    for use_v in (True, False):
+        before = dict(K.launch_counts)
+        got = grads(run_affine_lif_tb, use_v)
+        assert K.launch_counts["affine_lif_fwd_res"] == before["affine_lif_fwd_res"] + 1
+        assert K.launch_counts["affine_lif_bwd"] == before["affine_lif_bwd"] + 1
+        assert K.launch_counts["affine_lif_fwd"] == before["affine_lif_fwd"]
+        ref = grads(affine_lif_tb_reference, use_v)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[3], ref[3])
+        for g, r in zip(got[1:3], ref[1:3]):
+            torch.testing.assert_close(g, r, rtol=1e-4, atol=1e-4)
+    with pytest.raises(NotImplementedError):
+        run_affine_lif_tb(x, a, b, p, v0, with_readouts=True)
+    with torch.no_grad():  # no gradient needed: the inference kernel, readouts allowed
+        before = K.launch_counts["affine_lif_fwd"]
+        run_affine_lif_tb(x, a, b, p, v0, with_readouts=True)
+        assert K.launch_counts["affine_lif_fwd"] == before + 1
+
+
+@pytest.mark.cuda
+def test_bwd_wrapper_rejects_bad_inputs(cuda_device):
+    x, a, b, v0 = (t.to(cuda_device) for t in _inputs(2, 1, 4, 6, 8, torch.bfloat16))
+    _, vpre, _ = K.affine_lif_fwd_res(x, a, b, LIFParams(), v0)
+    g_s, g_v = _cotangents(x, v0)
+    with pytest.raises(ValueError, match="g_s must be"):
+        K.affine_lif_bwd(vpre, x, a, g_s.float(), g_v, LIFParams())
+    strided = g_s.repeat(1, 1, 1, 2)[..., ::2]  # same shape, not contiguous
+    with pytest.raises(ValueError, match="contiguous"):
+        K.affine_lif_bwd(vpre, x, a, strided, g_v, LIFParams())
+    with pytest.raises(ValueError, match="CUDA"):
+        K.affine_lif_bwd(vpre.cpu(), x.cpu(), a.cpu(), g_s.cpu(), g_v.cpu(), LIFParams())

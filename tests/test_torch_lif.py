@@ -122,12 +122,12 @@ def test_dispatch_by_device_on_cpu():
     x, a, b, v0 = _inputs(2, 1, 4, 4, 8, seed=6)
     args = (torch.from_numpy(x), torch.from_numpy(a), torch.from_numpy(b), tlif.LIFParams(),
             torch.from_numpy(v0), True)
-    before = K.launch_count
+    before = dict(K.launch_counts)
     got = tlif.run_affine_lif_tb(*args)
     ref = tlif.affine_lif_tb_reference(*args)
     for g, r in zip(got, ref):
         assert torch.equal(g, r)
-    assert K.launch_count == before  # the CPU path never counts a launch
+    assert K.launch_counts == before  # the CPU path never counts a launch
 
 
 def test_kernel_wrapper_refuses_cpu_tensors():
