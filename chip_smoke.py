@@ -2,11 +2,15 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-1. Builds the hand-written kernels from their source in the checkout.
+1. Builds the hand-written kernels from their sources in the checkout
+   (one nvcc per source, started together).
 2. Holds each kernel against its plain PyTorch version on the card at the
-   shapes the main paths give it: the inference forward (A1), the
-   residual-saving forward (A2) and the surrogate-BPTT backward (A3), the
-   last also launched twice for bitwise-equal affine gradients.
+   shapes the main paths give it: the normalize+LIF inference forward
+   (A1), residual-saving forward (A2) and surrogate-BPTT backward (A3), the
+   last also launched twice for bitwise-equal affine gradients; and the
+   plain LIF scan's forward (B1), residual-saving forward (B2) and
+   backward (B3) at the same 20 shapes taken as (T, B*H*W*C), plus odd
+   sizes, every output bit for bit.
 3. Drives the serving path — the streaming detection service at full width
    (default Config: yolo11m, 480x640, s2d4 stem, ConvLSTM, bf16, seeded
    random weights) — through DetectionService: 3 streams x 3 frames
@@ -21,13 +25,26 @@ Run from the repository root:  python3 chip_smoke.py
    short epoch with a validation step and a checkpoint that is read back.
    Counts are zeroed just before and read just after; every train step
    must launch A2 and A3 20 times each, every eval step A1 20 times.
-6. Times each kernel beside its byte bound and its plain version (device
+6. Drives the run_lif path at full width: conv -> GroupNorm -> run_lif at
+   the stem geometry (T=5, B=2, fp32) against the SpikingConvBlock with
+   the same weights, forward and one backward, with the launch counts
+   zeroed before and read after (one B1 without a gradient, one B2 and
+   one B3 with).
+7. Drives evaluation at full width: seeded T=5, B=2 batches through
+   make_predict_fn (conf 0.001, pool 30000: the greedy NMS path) and
+   evaluate_batches into DetMetrics; the greedy NMS on the card against
+   the CPU on the same candidates; a small fp32 input card against CPU.
+8. Serves the full-width token-LSTM-bottleneck model (hidden 1024, 80
+   tokens) to two streams through DetectionService, against the same
+   streams served alone.
+9. Times each kernel beside its byte bound and its plain version (device
    time only; host enqueue is hidden and checked to be hidden), the
    serving step at B=1 and B=4 over several windows of 100 dispatches
    with the spread and the dispatching thread's CPU time, detect()
    latency over 300 requests, the device (kernel) time of a B=1 step
-   from the profiler, and the train step (host clock, profiler kernel
-   time with the A2/A3 shares, peak memory).
+   from the profiler, the train step (host clock, profiler kernel
+   time with the A2/A3 shares, peak memory), an evaluation batch split
+   into model and NMS, and a frame of the token-LSTM model.
 
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}. Any failure raises (non-zero
@@ -85,6 +102,24 @@ GRAD_RTOL = 1e-4
 GRAD_ATOL = 1e-5
 LOSS_RTOL = 1e-5
 GRAD_ATTEMPTS = 5  # windows drawn until one has no card/CPU spike flip
+# The plain LIF scan kernels (B1-B3) do only per-element rounded fp32 ops:
+# every output must equal the plain version's bit for bit (tolerance 0).
+ODD_SCAN_SHAPES = ((4, 3, 50, 70), (1, 3, 50, 71), (3, 7, 9, 5))  # vector tails, odd N
+# conv -> GroupNorm -> run_lif against the fused SpikingConvBlock (fp32):
+# the two normalize differently ((x - mean) * rstd * g + b against
+# x * a + b'), ~1e-7 relative, so membranes agree to 1e-5 unless a spike
+# flips, and a spike may flip only where the membrane is within 1e-5 of
+# the threshold. Gradients per leaf: relative L2 error 1e-3 (measured
+# ~1e-5; a flipped element changes its own later steps only).
+COMP_ATOL = 1e-5
+COMP_GRAD_RTOL = 1e-3
+N_EVAL_BATCHES = 3  # full-width evaluation batches (T=5, B=2)
+N_LSTM_FRAMES = 3  # frames per stream served by the token-LSTM model
+N_LSTM_TIMED = 20  # B=1 dispatches of the token-LSTM model timed
+# Batched (B=2) against alone (B=1) in bf16: cuDNN may pick another
+# algorithm for another batch and round differently, so sorted scores are
+# compared to 1e-2, as the clip-vs-sequential check does.
+LSTM_SCORE_ATOL = 1e-2
 
 
 def card_line() -> str:
@@ -553,11 +588,434 @@ def time_training_kernels(card, K, lif_mod, lif_shapes, gen) -> dict:
     return sums
 
 
+def scan_inputs(shape, dtype, gen):
+    """Seeded inputs of the plain LIF scan: currents x (T, ...), v0 (...)
+    fp32, and cotangents g_s (as x), g_vfin (fp32)."""
+    x = (torch.randn(shape, device="cuda", generator=gen) * 1.2).to(dtype)
+    v0 = 0.3 * torch.randn(shape[1:], device="cuda", generator=gen)
+    g_s = torch.randn(shape, device="cuda", generator=gen).to(dtype)
+    g_v = torch.randn(shape[1:], device="cuda", generator=gen)
+    return x, v0, g_s, g_v
+
+
+def scan_bytes(kernel: str, n: int, t_steps: int, itemsize: int = 2) -> int:
+    """Bytes each plain-LIF-scan kernel must move for N elements over T
+    steps: the forward reads x and writes s per step (plus v_pre in the
+    residual variant), the backward reads v_pre and g_s and writes g_x;
+    each reads and writes one fp32 state once."""
+    per_step = 2 if kernel == "lif_scan_fwd" else 3
+    return n * (per_step * itemsize * t_steps + 8)
+
+
+SCAN_FLOPS = {"lif_scan_fwd": 6, "lif_scan_fwd_res": 6, "lif_scan_bwd": 15}  # per element-step
+
+
+def check_scan_kernels(KL, lif_mod, lif_shapes, gen) -> dict:
+    """B1, B2, B3 against their plain versions, bit for bit: the 20
+    main-path shapes as (T, B*H*W*C) for (T=1, B=1) and (T=5, B=2) in bf16,
+    soft and hard reset, plus odd sizes in fp32 and bf16. Raises on any
+    difference; returns the largest absolute error per kernel (0.0)."""
+    LIFParams = lif_mod.LIFParams
+    cases = [((t, b * hh * ww * cc), torch.bfloat16, f"{name} T={t} B={b}")
+             for name, (_, hh, ww, cc) in lif_shapes for t, b in ((1, 1), (T_TRAIN, B_TRAIN))]
+    cases += [(shape, dt, f"odd {shape} {str(dt)[6:]}")
+              for shape in ODD_SCAN_SHAPES for dt in (torch.float32, torch.bfloat16)]
+    errs = dict.fromkeys(KL.KERNELS, 0.0)
+    flips = checked = 0
+    for shape, dtype, tag in cases:
+        for p in (LIFParams(), LIFParams(reset="hard")):
+            x, v0, g_s, g_v = scan_inputs(shape, dtype, gen)
+            s1, vfin1 = KL.lif_scan_fwd(x, p, v0)
+            s2, vpre, vfin2 = KL.lif_scan_fwd_res(x, p, v0)
+            g_x, g_v0 = KL.lif_scan_bwd(vpre, g_s, g_v, p)
+            s_r, vpre_r, vfin_r = lif_mod.lif_forward_reference(x, p, v0, with_residuals=True)
+            r_x, r_v0 = lif_mod.lif_backward_reference(vpre, g_s, g_v, p)
+            torch.cuda.synchronize()
+            flips += int((s1 != s_r).sum()) + int((s2 != s_r).sum())
+            checked += 2 * s_r.numel()
+            pairs = {
+                "lif_scan_fwd": (("spikes", s1, s_r), ("v_final", vfin1, vfin_r)),
+                "lif_scan_fwd_res": (("spikes", s2, s_r), ("v_pre", vpre, vpre_r),
+                                     ("v_final", vfin2, vfin_r)),
+                "lif_scan_bwd": (("g_x", g_x, r_x), ("g_v0", g_v0, r_v0)),
+            }
+            for kname, outs in pairs.items():
+                for oname, got, ref in outs:
+                    if got.dtype != ref.dtype or got.shape != ref.shape:
+                        raise AssertionError(f"{kname} {tag} {p.reset}: {oname} is "
+                                             f"{got.dtype} {tuple(got.shape)}")
+                    errs[kname] = max(errs[kname], (got.float() - ref.float()).abs().max().item())
+                    if not torch.equal(got, ref):
+                        raise AssertionError(
+                            f"{kname} {tag} {p.reset}: {oname} differs from the plain version "
+                            f"(max abs {(got.float() - ref.float()).abs().max().item()})")
+    print(f"scan kernels ok: lif_scan_fwd, lif_scan_fwd_res, lif_scan_bwd vs plain at "
+          f"{len(lif_shapes)} shapes x (T=1 B=1; T={T_TRAIN} B={B_TRAIN}) bf16 + "
+          f"{len(ODD_SCAN_SHAPES)} odd sizes x f32/bf16, soft and hard: spikes, v_final, v_pre, "
+          f"g_x, g_v0 bit-equal; spike flips {flips} of {checked}; max_abs_err {errs}")
+    return errs
+
+
+def time_scan_kernels(card, KL, lif_mod, lif_shapes, gen) -> dict:
+    """B1, B2, B3 per launch at the 20 shapes as (T=5, B*H*W*C) with B=2 in
+    bf16, and B1 also at (T=1, B=1), beside their byte bounds and plain
+    versions; returns the sums over the 20 shapes at T=5, B=2."""
+    p = lif_mod.LIFParams()
+    sums = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0} for k in KL.KERNELS}
+    small = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+
+    def bwd_args(shape):
+        x, v0, g_s, g_v = scan_inputs(shape, torch.bfloat16, gen)
+        return KL.lif_scan_fwd_res(x, p, v0)[1], g_s, g_v
+
+    for name, (_, hh, ww, cc) in lif_shapes:
+        for t_steps, bsz in ((T_TRAIN, B_TRAIN), (1, 1)):
+            n = bsz * hh * ww * cc
+            shape = (t_steps, n)
+            fwd_make = lambda: scan_inputs(shape, torch.bfloat16, gen)[:2]  # noqa: E731
+            rows = [("lif_scan_fwd", fwd_make, lambda x, v0: KL.lif_scan_fwd(x, p, v0),
+                     lambda x, v0: lif_mod.lif_forward_reference(x, p, v0))]
+            if t_steps > 1:
+                rows += [
+                    ("lif_scan_fwd_res", fwd_make, lambda x, v0: KL.lif_scan_fwd_res(x, p, v0),
+                     lambda x, v0: lif_mod.lif_forward_reference(x, p, v0, with_residuals=True)),
+                    ("lif_scan_bwd", lambda: bwd_args(shape),
+                     lambda *t: KL.lif_scan_bwd(*t, p),
+                     lambda *t: lif_mod.lif_backward_reference(*t, p)),
+                ]
+            for kname, make, kern, plain in rows:
+                nbytes = scan_bytes(kname, n, t_steps)
+                km = time_cuda(kern, make, nbytes)
+                pm = time_cuda(plain, make, nbytes)
+                bm = max(nbytes / HBM_BYTES_PER_S,
+                         SCAN_FLOPS[kname] * n * t_steps / FP32_FLOPS) * 1e3
+                acc = sums[kname] if t_steps > 1 else small
+                acc["ms"] += km
+                acc["plain_ms"] += pm
+                acc["bound_ms"] += bm
+                print(f"[{card}] {kname} {name} T={t_steps} N={n} ({bsz}x{hh}x{ww}x{cc}): "
+                      f"{km * 1e3:.2f} us (bound {bm * 1e3:.2f} us, {bm / km:.0%} of bound; "
+                      f"plain {pm * 1e3:.2f} us)")
+    for kname, v in sums.items():
+        print(f"[{card}] {kname} summed over the 20 shapes (T={T_TRAIN} B={B_TRAIN} bf16): "
+              f"kernel {v['ms']:.4f} ms, bound {v['bound_ms']:.4f} ms "
+              f"({v['bound_ms'] / v['ms']:.0%} of bound), plain {v['plain_ms']:.4f} ms")
+    print(f"[{card}] lif_scan_fwd summed over the 20 shapes (T=1 B=1 bf16): kernel "
+          f"{small['ms']:.4f} ms, bound {small['bound_ms']:.4f} ms "
+          f"({small['bound_ms'] / small['ms']:.0%} of bound), plain {small['plain_ms']:.4f} ms")
+    return sums
+
+
+def run_lif_path(KL, det, lif_shapes, gen) -> dict:
+    """The run_lif entry point at full width: conv -> GroupNorm(eps 1e-6) ->
+    run_lif against the SpikingConvBlock with the same weights, at the
+    geometry of the model's widest 120x160 stem block, T=5, B=2, fp32:
+    once without a gradient, once forward and backward. Returns the launch
+    counts of the B kernels over exactly these two calls."""
+    from snn_object_detectionddp_tpu_torch.models import layers as L
+    from snn_object_detectionddp_tpu_torch.models.lif import (
+        LIFParams, lif_forward_reference, run_lif,
+    )
+
+    p = LIFParams()
+    blocks = dict(det.module.named_modules())
+    name, (_, hh, ww, cc) = max(
+        ((n, s) for n, s in lif_shapes if s[1:3] == lif_shapes[0][1][1:3]),
+        key=lambda ns: ns[1][3])
+    model_block = blocks[name]
+    in_ch, stride = model_block.weight.shape[1], model_block.stride
+    if stride != 1:
+        raise AssertionError(f"{name}: expected a stride-1 stem block")
+    with torch.device("meta"):
+        block = L.SpikingConvBlock(in_ch, cc, p, dtype=torch.float32)
+    cpu_gen = torch.Generator().manual_seed(SEED + 2)
+    weights = {}
+    for leaf, param in block.named_parameters():
+        t = torch.empty(param.shape)
+        block.init_param(leaf, t, cpu_gen)
+        weights[leaf] = t
+    weights["gn_scale"] += 0.2 * torch.randn(cc, generator=cpu_gen)
+    weights["gn_bias"] += 0.2 * torch.randn(cc, generator=cpu_gen)
+    weights = {k: v.cuda().requires_grad_() for k, v in weights.items()}
+    x_t = (torch.rand((T_TRAIN, B_TRAIN, hh, ww, in_ch), device="cuda", generator=gen) < 0.3).float()
+    x_t.requires_grad_()
+    w_s = torch.randn((T_TRAIN, B_TRAIN, hh, ww, cc), device="cuda", generator=gen)
+
+    def composition(x_t):
+        y = L.conv2d_nhwc(x_t.reshape(T_TRAIN * B_TRAIN, hh, ww, in_ch), weights["weight"])
+        y = L.group_norm_nhwc(y, L._num_groups(cc), weights["gn_scale"], weights["gn_bias"])
+        return y, run_lif(y.view(T_TRAIN, B_TRAIN, hh, ww, cc), p)
+
+    def fused(x_t):
+        return torch.func.functional_call(block, weights, (x_t,))
+
+    def loss_and_grads(s, v):
+        loss = (s * w_s).sum() + v.square().sum()
+        return loss, torch.autograd.grad(loss, [x_t, *weights.values()])
+
+    # The fused block first (its A kernels are not what this path counts).
+    s_f, v_f = fused(x_t)
+    loss_f, grads_f = loss_and_grads(s_f, v_f)
+
+    KL.reset_launch_counts()
+    with torch.no_grad():
+        y, (s_n, v_n) = composition(x_t)
+    after_no_grad = dict(KL.launch_counts)
+    _, (s_c, v_c) = composition(x_t)
+    loss_c, grads_c = loss_and_grads(s_c, v_c)
+    torch.cuda.synchronize()
+    launches = dict(KL.launch_counts)
+    if after_no_grad != {"lif_scan_fwd": 1, "lif_scan_fwd_res": 0, "lif_scan_bwd": 0}:
+        raise AssertionError(f"run_lif without a gradient launched {after_no_grad}")
+    if launches != {"lif_scan_fwd": 1, "lif_scan_fwd_res": 1, "lif_scan_bwd": 1}:
+        raise AssertionError(f"run_lif with a gradient launched {launches} (after the no-grad call)")
+    if not (torch.equal(s_n, s_c) and torch.equal(v_n, v_c)):
+        raise AssertionError("run_lif gives other spikes with a gradient than without")
+
+    # Spikes may differ only where the membrane is within COMP_ATOL of the
+    # threshold; elsewhere the membranes agree to COMP_ATOL.
+    with torch.no_grad():
+        _, vpre, _ = lif_forward_reference(y.view(T_TRAIN, B_TRAIN, hh, ww, cc), p,
+                                           torch.zeros_like(v_c), with_residuals=True)
+        near = ((vpre - p.threshold).abs() < COMP_ATOL).any(0)
+        flipped = (s_c != s_f).any(0)
+        n_flips, n_elem = int((s_c != s_f).sum()), s_c.numel()
+        if (flipped & ~near).any():
+            raise AssertionError(f"{int((flipped & ~near).sum())} elements spike differently "
+                                 "away from the threshold")
+        v_err = (v_c - v_f).abs()[~flipped].max().item()
+        if v_err > COMP_ATOL:
+            raise AssertionError(f"v_final differs by {v_err} where no spike flipped")
+    worst = 0.0
+    for leaf, gc, gf in zip(["x", *weights], grads_c, grads_f):
+        if not torch.isfinite(gc).all():
+            raise AssertionError(f"non-finite gradient of {leaf} through run_lif")
+        rel = ((gc - gf).double().norm() / gf.double().norm().clamp(min=1e-30)).item()
+        worst = max(worst, rel)
+        if rel > COMP_GRAD_RTOL:
+            raise AssertionError(f"gradient of {leaf}: relative L2 error {rel} between the "
+                                 "run_lif composition and the fused block")
+    print(f"run_lif path ok: conv -> GroupNorm -> run_lif vs SpikingConvBlock at {name} "
+          f"geometry ({T_TRAIN}x{B_TRAIN}x{hh}x{ww}x{in_ch} -> {cc}, fp32): spike flips "
+          f"{n_flips} of {n_elem} (all within {COMP_ATOL} of the threshold), firing rate "
+          f"{s_c.mean().item():.4f}, v_final max err {v_err:.3g} off the flipped elements, loss "
+          f"{loss_c.item():.4f} vs {loss_f.item():.4f}, worst gradient leaf relative L2 error "
+          f"{worst:.3g} (limit {COMP_GRAD_RTOL}); launches {launches} (no-grad call: "
+          f"{after_no_grad})")
+    return launches
+
+
+def nms_outputs_close(got: dict, ref: dict, score_atol: float, tag: str) -> str:
+    """Two NMS dicts of numpy arrays for the same images: the numbers of
+    detections may differ by 2% (a score at the confidence threshold), the
+    descending scores of the common slots by ``score_atol``."""
+    notes = []
+    for i in range(got["valid"].shape[0]):
+        n_g, n_r = int(got["valid"][i].sum()), int(ref["valid"][i].sum())
+        n = min(n_g, n_r)
+        if n == 0 or abs(n_g - n_r) > max(2, 0.02 * n_r):
+            raise AssertionError(f"{tag} image {i}: {n_g} vs {n_r} detections")
+        diff = float(np.abs(got["scores"][i][:n] - ref["scores"][i][:n]).max())
+        if diff > score_atol:
+            raise AssertionError(f"{tag} image {i}: scores differ by {diff}")
+        notes.append(f"{n_g}/{n_r} detections, max score diff {diff:.3g}")
+    return "; ".join(notes)
+
+
+def run_eval_slice(card, K, det, params, det_gpu, det_cpu, n_blocks, rng) -> None:
+    """Evaluation at full width on the card: seeded batches through
+    make_predict_fn at the evaluation thresholds (greedy NMS) and
+    evaluate_batches into DetMetrics; the greedy NMS card against CPU on
+    the same candidates; the whole predict function card against CPU on a
+    small fp32 input; ms per batch split into model and NMS."""
+    from snn_object_detectionddp_tpu_torch.data.encoding import preprocess_video
+    from snn_object_detectionddp_tpu_torch.evals import validator
+    from snn_object_detectionddp_tpu_torch.models.detect import decode_predictions
+    from snn_object_detectionddp_tpu_torch.ops import nms
+
+    cfg = det.cfg
+    h, w = cfg.model.image_size
+    batches = []
+    for i in range(N_EVAL_BATCHES):
+        batch = moving_boxes_batch(rng, B_TRAIN, T_TRAIN, h, w, cfg.model.num_classes)
+        batch["paths"] = [f"window_{i}_{j}" for j in range(B_TRAIN)]
+        batches.append(batch)
+    predict = validator.make_predict_fn(det)
+    greedy_calls, outs = [0], []
+    greedy = nms._nms_greedy
+
+    def counting_greedy(*args):
+        greedy_calls[0] += 1
+        return greedy(*args)
+
+    def keeping_predict(p_, images):
+        outs.append(predict(p_, images))
+        return outs[-1]
+
+    nms._nms_greedy = counting_greedy
+    try:
+        K.reset_launch_counts()
+        results = validator.evaluate_batches(det, params, batches, predict=keeping_predict)
+        torch.cuda.synchronize()
+        launches = dict(K.launch_counts)
+    finally:
+        nms._nms_greedy = greedy
+    want = {"affine_lif_fwd": n_blocks * N_EVAL_BATCHES, "affine_lif_fwd_res": 0,
+            "affine_lif_bwd": 0}
+    if launches != want or greedy_calls[0] != N_EVAL_BATCHES:
+        raise AssertionError(f"evaluation launched {launches} (want {want}) and took the greedy "
+                             f"NMS path {greedy_calls[0]} times of {N_EVAL_BATCHES}")
+    keys = {"metrics/precision(B)", "metrics/recall(B)", "metrics/mAP50(B)",
+            "metrics/mAP50-95(B)", "fitness"}
+    if set(results) != keys or not all(np.isfinite(v) and 0.0 <= v <= 1.0 for v in results.values()):
+        raise AssertionError(f"bad results dict: {results}")
+    n_valid = [int(o["valid"].sum()) for o in outs]
+    for o in outs:
+        if tuple(o["boxes"].shape) != (B_TRAIN, validator.EVAL_MAX_DET, 4):
+            raise AssertionError(f"NMS output shape {tuple(o['boxes'].shape)}")
+        if not (torch.isfinite(o["boxes"]).all() and torch.isfinite(o["scores"]).all()):
+            raise AssertionError("non-finite detections in evaluation")
+    if min(n_valid) == 0:
+        raise AssertionError("an evaluation batch kept no detection at conf 0.001")
+    print(f"evaluation slice ok: {N_EVAL_BATCHES} batches (T={T_TRAIN} B={B_TRAIN}, {h}x{w}) "
+          f"through make_predict_fn (conf {validator.EVAL_CONF}, iou {validator.EVAL_IOU}, "
+          f"max_det {validator.EVAL_MAX_DET}, pool {validator.EVAL_PRE_NMS_TOPK}) -> greedy NMS "
+          f"x{greedy_calls[0]} -> DetMetrics; detections kept per batch {n_valid}; launches "
+          f"{launches}; results (random weights) {results}")
+
+    # The stages of one batch, for the greedy NMS check and the timing.
+    images = torch.from_numpy(batches[0]["images"]).cuda()
+
+    def model_stage():
+        with torch.no_grad():
+            raw, _ = det.apply(params, preprocess_video(images, dtype=det.dtype))
+            return decode_predictions(raw, cfg.model.hyp.reg_max, cfg.model.num_classes,
+                                      image_hw=(h, w))
+
+    kw = dict(conf_thres=validator.EVAL_CONF, iou_thres=validator.EVAL_IOU,
+              max_det=validator.EVAL_MAX_DET, pre_nms_topk=validator.EVAL_PRE_NMS_TOPK)
+    boxes, scores = model_stage()
+    if boxes.shape[1] <= nms._MATRIX_PATH_MAX_K:
+        raise AssertionError(f"{boxes.shape[1]} anchors: evaluation would not take the greedy path")
+    on_card = {k: v.cpu().numpy() for k, v in nms.batched_nms(boxes, scores, **kw).items()}
+    on_cpu = {k: v.numpy() for k, v in nms.batched_nms(boxes.cpu(), scores.cpu(), **kw).items()}
+    same = all(np.array_equal(on_card[k], on_cpu[k]) for k in on_cpu)
+    note = nms_outputs_close(on_card, on_cpu, 1e-6, "greedy NMS card vs CPU")
+    print(f"greedy NMS card vs CPU on one full-width batch ({boxes.shape[1]} candidates an "
+          f"image): identical outputs {same}; {note}")
+
+    small = rng.randint(0, 256, size=(2, 2, 64, 96, 3), dtype=np.uint8)
+    g = {k: v.cpu().numpy() for k, v in validator.make_predict_fn(det_gpu)(params, small).items()}
+    c = {k: v.numpy() for k, v in validator.make_predict_fn(det_cpu)(
+        {k: v.cpu() for k, v in params.items()}, small).items()}
+    print("evaluation predict card vs CPU (fp32, 64x96, T=2, B=2): "
+          + nms_outputs_close(g, c, 1e-3, "predict card vs CPU"))
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    model_ms, nms_ms, total_ms = [], [], []
+    for batch in batches:
+        images = torch.from_numpy(batch["images"]).cuda()
+        (boxes, scores), m = timed(model_stage)
+        _, n = timed(lambda: nms.batched_nms(boxes, scores, **kw))
+        _, t = timed(lambda: {k: v.cpu() for k, v in predict(params, batch["images"]).items()})
+        model_ms.append(m)
+        nms_ms.append(n)
+        total_ms.append(t)
+    print(f"[{card}] evaluation batch T={T_TRAIN} B={B_TRAIN} (host clock, synchronised, "
+          f"{len(batches)} batches): model (preprocess + forward + decode) ms {spread(model_ms)}; "
+          f"greedy NMS ({validator.EVAL_MAX_DET} rounds over {boxes.shape[1]} candidates) ms "
+          f"{spread(nms_ms)}; whole predict with the copy to the host ms {spread(total_ms)}")
+
+
+def run_lstm_serving(card, K, n_blocks, rng) -> None:
+    """The token-LSTM-bottleneck model at full width (hidden 1024, 80
+    tokens at 8x10) through DetectionService: two streams micro-batched,
+    against the same streams served alone."""
+    from snn_object_detectionddp_tpu_torch.config import Config
+    from snn_object_detectionddp_tpu_torch.models.detector import Detector
+    from snn_object_detectionddp_tpu_torch.serve import DetectionService, _Job
+
+    cfg = Config()
+    cfg.model.bottleneck = "lstm"
+    h, w = cfg.model.image_size
+    det = Detector.from_config(cfg, device="cuda")
+    params = det.init_params(torch.Generator().manual_seed(SEED + 3))
+    lstm = det.module.unet.bottleneck
+    n_params = sum(v.numel() for v in params.values())
+    svc = DetectionService(det, params, conf=0.0, max_det=100, max_batch=2, max_clip=1)
+    carry = svc._zero_state1["unet"]["bottleneck"]
+    if [tuple(t.shape) for t in carry] != [(lstm.num_layers, 1, lstm.hidden)] * 2 or \
+            svc._state_axes["unet"]["bottleneck"] != (1, 1):
+        raise AssertionError("the token-LSTM carry is not (layers, B, hidden) with batch axis 1")
+    svc.warmup()
+    frames = {s: [rng.randint(0, 256, size=(h, w, 3), dtype=np.uint8)
+                  for _ in range(N_LSTM_FRAMES)] for s in ("lstm_a", "lstm_b")}
+    # Queue both streams' frames before the worker starts, so that every
+    # dispatch batches the two streams.
+    jobs = {s: [_Job(s, f) for f in fs] for s, fs in frames.items()}
+    for i in range(N_LSTM_FRAMES):
+        for s in jobs:
+            svc._q.put(jobs[s][i])
+    K.reset_launch_counts()
+    svc.start()
+    try:
+        batched = {s: [j.reply.get(timeout=600) for j in js] for s, js in jobs.items()}
+        for rs in batched.values():
+            for r in rs:
+                if isinstance(r, Exception):
+                    raise r
+        alone = {s: [svc.detect(f"{s}_alone", f) for f in fs] for s, fs in frames.items()}
+        torch.cuda.synchronize()
+        launches = K.launch_counts["affine_lif_fwd"]
+        n_fwd = N_LSTM_FRAMES + 2 * N_LSTM_FRAMES
+        if launches != n_blocks * n_fwd or any(r["batch"] != 2 for rs in batched.values() for r in rs):
+            raise AssertionError(f"lstm serving: {launches} affine_lif_fwd launches over {n_fwd} "
+                                 f"forwards, batches {[r['batch'] for rs in batched.values() for r in rs]}")
+        diffs = []
+        for s in frames:
+            for a_, b_ in zip(batched[s], alone[s]):
+                sa, sb = np.sort(a_["scores"]), np.sort(b_["scores"])
+                if len(sa) == 0 or len(sa) != len(sb) or not np.isfinite(sa).all():
+                    raise AssertionError(f"{s}: {len(sa)} vs {len(sb)} detections")
+                diffs.append(float(np.abs(sa - sb).max()))
+            if batched[s][0]["scores"] == batched[s][1]["scores"]:
+                raise AssertionError(f"{s}: the state did not advance between frames")
+        if max(diffs) > LSTM_SCORE_ATOL:
+            raise AssertionError(f"batched and alone lstm streams disagree: {diffs}")
+        carry_err = max(
+            (svc._states[s]["unet"]["bottleneck"][k] - svc._states[f"{s}_alone"]["unet"]["bottleneck"][k])
+            .abs().max().item() for s in frames for k in (0, 1))
+        print(f"lstm serving ok: {cfg.model.yolo_model_name} {h}x{w} bottleneck lstm (hidden "
+              f"{lstm.hidden}, {lstm.num_layers} layers, {n_params / 1e6:.1f}M params), 2 streams x "
+              f"{N_LSTM_FRAMES} frames in batches of 2 vs the same streams alone: per-frame max "
+              f"|sorted score diff| {diffs} (limit {LSTM_SCORE_ATOL}), carry (h, c) max diff "
+              f"{carry_err:.3g}; affine_lif_fwd launches {launches} over {n_fwd} forwards")
+        img = np.stack([frames["lstm_a"][0]])
+        state = (svc._zero_state1,)
+        for _ in range(3):
+            svc._predict(img, state)
+        torch.cuda.synchronize()
+        wins = host_windows(lambda: svc._predict(img, state), 1, N_LSTM_TIMED)
+        print(f"[{card}] lstm-bottleneck serving step B=1 ({N_LSTM_TIMED} dispatches, host "
+              f"clock, forward+decode+NMS): {wins[0][0]:.3f} ms/frame, dispatching thread on CPU "
+              f"{wins[0][1]:.3f} ms")
+    finally:
+        svc.stop()
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA card (torch.cuda.is_available() is False)")
     from snn_object_detectionddp_tpu_torch.config import Config
     from snn_object_detectionddp_tpu_torch.kernels import affine_lif as K
+    from snn_object_detectionddp_tpu_torch.kernels import build as kernel_build
+    from snn_object_detectionddp_tpu_torch.kernels import lif as KL
     from snn_object_detectionddp_tpu_torch.models.detector import Detector
     from snn_object_detectionddp_tpu_torch.models.layers import SpikingConvBlock
     from snn_object_detectionddp_tpu_torch.models import lif as lif_mod
@@ -571,10 +1029,11 @@ def main() -> None:
     dev_name = torch.cuda.get_device_name(0)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}; card: {card}")
 
-    # -- build the kernel from its source ----------------------------------
+    # -- build the kernels from their sources, one nvcc each ----------------
     t0 = time.perf_counter()
-    K.build()
-    print(f"built {', '.join(K.KERNELS)} in {time.perf_counter() - t0:.1f} s")
+    kernel_build.build_all()
+    print(f"built {', '.join(K.KERNELS + KL.KERNELS)} from {', '.join(kernel_build.SOURCES)} "
+          f"in {time.perf_counter() - t0:.1f} s")
 
     # -- the main path's model, and the LIF shapes it runs -----------------
     cfg = Config()  # yolo11m, 480x640, s2d4, ConvLSTM, bf16
@@ -636,6 +1095,7 @@ def main() -> None:
           f"spike flips {n_flips} of {n_checked} (near-threshold |v_pre-theta|<{SPIKE_EPS}: {n_near})")
 
     train_errs = check_training_kernels(K, lif_mod, lif_shapes, gen)
+    scan_errs = check_scan_kernels(KL, lif_mod, lif_shapes, gen)
 
     # -- phase 2: the full-width serving slice -----------------------------
     svc = DetectionService(det, params, conf=0.0, max_det=100, max_batch=4,
@@ -723,6 +1183,8 @@ def main() -> None:
         if max(ref_errs) > 1e-2:
             raise AssertionError("card output disagrees with the CPU reference")
         gradient_check(det_gpu, det_cpu, params, rng)
+        run_eval_slice(card, K, det, params, det_gpu, det_cpu, n_blocks, rng)
+        del det_gpu, det_cpu, params_cpu
 
         # -- phase 3: timings ----------------------------------------------
         rows, k_ms, p_ms, bound_ms = [], 0.0, 0.0, 0.0
@@ -797,30 +1259,51 @@ def main() -> None:
         svc.stop()
     del svc, params
 
+    # -- the run_lif entry point and the token-LSTM model, at full width ----
+    scan_launches = run_lif_path(KL, det, lif_shapes, gen)
+    run_lstm_serving(card, K, n_blocks, rng)
+    torch.cuda.empty_cache()
+
     # -- phase 4: the full-width training slice ----------------------------
     launches.update({k: v for k, v in run_training_slice(card, K, det, cfg, n_blocks, rng).items()
                      if k != "affine_lif_fwd"})
     train_ms = time_training_kernels(card, K, lif_mod, lif_shapes, gen)
 
-    pallas = "snn_object_detectionddp_tpu/kernels/affine_lif_pallas.py"
+    scan_ms = time_scan_kernels(card, KL, lif_mod, lif_shapes, gen)
+
+    csrc = "snn_object_detectionddp_tpu_torch/csrc"
+    affine = ("affine_lif.cu", "snn_object_detectionddp_tpu/kernels/affine_lif_pallas.py")
+    scan = ("lif_scan.cu", "snn_object_detectionddp_tpu/kernels/lif_pallas.py")
     measured = {
-        "affine_lif_fwd": (93, max_err, {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms}),
-        "affine_lif_fwd_res": (107, train_errs["affine_lif_fwd_res"], train_ms["affine_lif_fwd_res"]),
-        "affine_lif_bwd": (198, train_errs["affine_lif_bwd"], train_ms["affine_lif_bwd"]),
+        "affine_lif_fwd": (affine, 93, launches, max_err,
+                           {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms}),
+        "affine_lif_fwd_res": (affine, 107, launches, train_errs["affine_lif_fwd_res"],
+                               train_ms["affine_lif_fwd_res"]),
+        "affine_lif_bwd": (affine, 198, launches, train_errs["affine_lif_bwd"],
+                           train_ms["affine_lif_bwd"]),
+        "lif_scan_fwd": (scan, 56, scan_launches, scan_errs["lif_scan_fwd"],
+                         scan_ms["lif_scan_fwd"]),
+        "lif_scan_fwd_res": (scan, 71, scan_launches, scan_errs["lif_scan_fwd_res"],
+                             scan_ms["lif_scan_fwd_res"]),
+        "lif_scan_bwd": (scan, 134, scan_launches, scan_errs["lif_scan_bwd"],
+                         scan_ms["lif_scan_bwd"]),
     }
+    for name, (_, _, counts, _, _) in measured.items():
+        if counts[name] < 1:
+            raise AssertionError(f"{name} was not launched on its main path")
     print(json.dumps({"kernels": [{
         "name": name,
         "route": "cuda",
-        "source": "snn_object_detectionddp_tpu_torch/csrc/affine_lif.cu",
+        "source": f"{csrc}/{source}",
         "replaces": f"{pallas}:{line}",
-        "launches": launches[name],
+        "launches": counts[name],
         "max_abs_err": err,
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
         "bound_by": "bytes",
         "library_ms": None,
-    } for name, (line, err, t) in measured.items()]}))
+    } for name, ((source, pallas), line, counts, err, t) in measured.items()]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": dev_name, "count": torch.cuda.device_count(),

@@ -11,7 +11,8 @@ module path (``backbone.stem1.weight``). Rules:
 - any other 4D ``kernel`` (1x1 convs) -> ``<m>.weight`` (OIHW)
 - ``gates_kernel`` (HWIO, kept whole) -> OIHW; the ConvLSTM slices it at
   its input width
-- every other leaf keeps its name.
+- every other leaf keeps its name and layout: biases, and the token-LSTM
+  bottleneck's ``l{n}_w_ih`` / ``l{n}_w_hh`` (in, 4*hidden) and ``l{n}_bias``.
 
 Floating leaves are cast up to fp32 (the committed fixture checkpoint
 stores fp16 to stay small).

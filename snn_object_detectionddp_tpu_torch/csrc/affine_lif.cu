@@ -65,20 +65,13 @@
 
 #include <initializer_list>
 
+#include "lif_common.cuh"
+
 namespace {
 
-template <typename T, int N>
-struct alignas(sizeof(T) * N) Vec {
-  T v[N];
-};
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16_rn(x);
-}
+using lifk::Vec;
+using lifk::to_f32;
+using lifk::from_f32;
 
 // AUX selects the optional per-step output: none, the readouts
 // (v_next + s*theta) or the residual (v_pre).

@@ -19,9 +19,10 @@ All three are bound by memory bytes. :class:`AffineLIF` ties the last two
 into a ``torch.autograd.Function``; models/lif.py::run_affine_lif_tb picks
 between it and the inference forward.
 
-Build: ``nvcc`` compiles the source into a shared library with a plain C
-interface under ``build/kernels/`` at first use (a few seconds), named by
-the source's hash so an edited source is rebuilt; ``ctypes`` loads it.
+Build: kernels/build.py compiles the source with ``nvcc`` into a shared
+library with a plain C interface under ``build/kernels/`` at first use (a
+few seconds), named by the source's hash so an edited source is rebuilt;
+``ctypes`` loads it.
 The plain versions of the same functions are in models/lif.py
 (``affine_lif_tb_reference``, ``affine_lif_forward_reference``,
 ``affine_lif_backward_reference``).
@@ -30,23 +31,13 @@ The plain versions of the same functions are in models/lif.py
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import torch
 
 from ..models.lif import LIFParams, backward_cotangents
+from . import build as _build
 
-SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "affine_lif.cu"
-BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
-)
+SOURCE = "affine_lif.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 KERNELS = ("affine_lif_fwd", "affine_lif_fwd_res", "affine_lif_bwd")
@@ -57,69 +48,26 @@ launch_counts = dict.fromkeys(KERNELS, 0)
 # against the built library when it is loaded).
 BWD_PIXELS_PER_THREAD = 4
 
-_lib = None
-_build_lock = threading.Lock()
-
 
 def reset_launch_counts() -> None:
     for name in KERNELS:
         launch_counts[name] = 0
 
 
-def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
-    if home and Path(home, "bin", "nvcc").exists():
-        return str(Path(home, "bin", "nvcc"))
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    default = Path("/usr/local/cuda/bin/nvcc")
-    if default.exists():
-        return str(default)
-    raise RuntimeError("nvcc not found (set CUDA_HOME): the LIF kernel cannot be built")
-
-
-def build() -> Path:
-    """Compile the kernel library if this source has not been built yet;
-    returns its path."""
-    digest = hashlib.sha256(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    out = BUILD_DIR / f"libaffine_lif_{digest}.so"
-    if out.exists():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: concurrent builders race harmlessly
-    return out
-
-
-def _load():
-    global _lib
-    with _build_lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            vp, i64, f32, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_int
-            fwd_args = [vp] * 7 + [i64] * 4 + [f32, f32, i32, i32, vp]
-            lib.affine_lif_fwd.argtypes = fwd_args
-            lib.affine_lif_fwd_res.argtypes = fwd_args
-            lib.affine_lif_bwd.argtypes = (
-                [vp] * 9 + [i64] * 4 + [f32, f32, f32] + [i32] * 5 + [i64, vp]
-            )
-            lib.affine_lif_bwd_pixels_per_thread.argtypes = []
-            for fn in (lib.affine_lif_fwd, lib.affine_lif_fwd_res, lib.affine_lif_bwd,
-                       lib.affine_lif_bwd_pixels_per_thread):
-                fn.restype = ctypes.c_int
-            if lib.affine_lif_bwd_pixels_per_thread() != BWD_PIXELS_PER_THREAD:
-                raise RuntimeError("kernel library and wrapper disagree on BWD_PPT")
-            _lib = lib
-    return _lib
+def _declare(lib: ctypes.CDLL) -> None:
+    vp, i64, f32, i32 = ctypes.c_void_p, ctypes.c_int64, ctypes.c_float, ctypes.c_int
+    fwd_args = [vp] * 7 + [i64] * 4 + [f32, f32, i32, i32, vp]
+    lib.affine_lif_fwd.argtypes = fwd_args
+    lib.affine_lif_fwd_res.argtypes = fwd_args
+    lib.affine_lif_bwd.argtypes = (
+        [vp] * 9 + [i64] * 4 + [f32, f32, f32] + [i32] * 5 + [i64, vp]
+    )
+    lib.affine_lif_bwd_pixels_per_thread.argtypes = []
+    for fn in (lib.affine_lif_fwd, lib.affine_lif_fwd_res, lib.affine_lif_bwd,
+               lib.affine_lif_bwd_pixels_per_thread):
+        fn.restype = ctypes.c_int
+    if lib.affine_lif_bwd_pixels_per_thread() != BWD_PIXELS_PER_THREAD:
+        raise RuntimeError("kernel library and wrapper disagree on BWD_PPT")
 
 
 def _check_forward_inputs(name, x4, a, b, p, v0):
@@ -160,13 +108,7 @@ def _check_forward_inputs(name, x4, a, b, p, v0):
 def _launch(name: str, device: torch.device, *args) -> None:
     """Call one kernel's C entry point on PyTorch's current stream of
     ``device``; raise on a refused launch, count an accepted one."""
-    lib = _load()
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        err = getattr(lib, name)(*args, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    launch_counts[name] += 1
+    _build.launch(_build.load(SOURCE, _declare), launch_counts, name, device, *args)
 
 
 def affine_lif_fwd(

@@ -1,0 +1,101 @@
+"""Build and load the hand-written CUDA sources under ``csrc/``.
+
+Each source becomes one shared library with a plain C interface, compiled
+by ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at first use (a few
+seconds) and loaded with ``ctypes``. The library's name carries a hash of
+the source, of the headers it includes from ``csrc/`` and of the flags, so
+an edited source is rebuilt and a stale library is never loaded. Nothing
+is fetched or prebuilt: the repository's sources are the only input.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+    "-shared", "-Xcompiler", "-fPIC",
+)
+# Headers under csrc/ that the sources include: part of every library's hash.
+HEADERS = ("lif_common.cuh",)
+SOURCES = ("affine_lif.cu", "lif_scan.cu")
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and Path(home, "bin", "nvcc").exists():
+        return str(Path(home, "bin", "nvcc"))
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    default = Path("/usr/local/cuda/bin/nvcc")
+    if default.exists():
+        return str(default)
+    raise RuntimeError("nvcc not found (set CUDA_HOME): the LIF kernels cannot be built")
+
+
+def build(source: str) -> Path:
+    """Compile ``csrc/<source>`` if this version of it has not been built
+    yet; returns the library's path."""
+    src = CSRC / source
+    digest = hashlib.sha256(
+        src.read_bytes() + b"".join((CSRC / h).read_bytes() for h in HEADERS)
+        + " ".join(NVCC_FLAGS).encode()
+    ).hexdigest()[:16]
+    out = BUILD_DIR / f"lib{src.stem}_{digest}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
+    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+        )
+    os.replace(tmp, out)  # atomic: concurrent builds race harmlessly
+    return out
+
+
+def build_all() -> list[Path]:
+    """Compile every kernel source, one ``nvcc`` each, all started together."""
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        return list(pool.map(build, SOURCES))
+
+
+def load(source: str, declare) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<source>``, built first when needed.
+    ``declare(lib)`` sets the argument types of its entry points; it runs
+    once, before any other thread can see the library."""
+    with _lock:
+        if source not in _libs:
+            lib = ctypes.CDLL(str(build(source)))
+            declare(lib)
+            _libs[source] = lib
+        return _libs[source]
+
+
+def launch(lib: ctypes.CDLL, counts: dict, name: str, device, *args) -> None:
+    """Call the C entry point ``name`` of ``lib`` on PyTorch's current
+    stream of ``device``; raise on a refused launch, add one to
+    ``counts[name]`` for an accepted one."""
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        err = getattr(lib, name)(*args, stream)
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    counts[name] += 1

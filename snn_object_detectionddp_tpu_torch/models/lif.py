@@ -18,6 +18,11 @@ versions in this module (:func:`affine_lif_tb_reference` and the
 functions it is built from). Kernel and plain version compute the same
 function: under a gradient both save the pre-reset membrane rounded to
 x's dtype and run the same reverse-time recurrence on it.
+
+The plain LIF scan over any (T, ...) currents (no affine) goes through
+:func:`run_lif` in the same way: the kernels of kernels/lif.py on a CUDA
+tensor, :func:`lif_forward_reference` / :func:`lif_backward_reference` on
+a CPU tensor.
 """
 
 from __future__ import annotations
@@ -261,3 +266,120 @@ def run_affine_lif_tb(
             v0 = _zero_membrane(x4, a.shape[1])
         return AffineLIF.apply(x4, a, b, v0, p)
     return affine_lif_fwd(x4, a, b, p, v0, with_readouts)
+
+
+# ---------------------------------------------------------------------------
+# Plain LIF scan on any (T, ...) currents: run_lif and its plain versions
+# ---------------------------------------------------------------------------
+
+
+def lif_forward_reference(
+    x_t: torch.Tensor, p: LIFParams, v0: torch.Tensor, with_residuals: bool = False
+):
+    """Plain, gradient-free LIF scan over the leading time axis, step for
+    step what the ``lif_scan_fwd`` / ``lif_scan_fwd_res`` kernels compute.
+    Returns (spikes (T, ...) in x's dtype, v_pre (T, ...) rounded to x's
+    dtype — None without ``with_residuals`` —, v_final (...) fp32)."""
+    v = v0
+    spikes, vpres = [], []
+    for t in range(x_t.shape[0]):
+        v_pre = p.decay * v + x_t[t].float()
+        s = (v_pre >= p.threshold).float()
+        if p.reset == "soft":
+            v = v_pre - s * p.threshold
+        else:
+            v = v_pre * (1.0 - s)
+        spikes.append(s.to(x_t.dtype))
+        if with_residuals:
+            vpres.append(v_pre.to(x_t.dtype))
+    empty = x_t.new_empty(x_t.shape)
+    return (torch.stack(spikes) if spikes else empty,
+            (torch.stack(vpres) if vpres else empty) if with_residuals else None, v)
+
+
+def lif_backward_reference(
+    v_pre: torch.Tensor,  # (T, ...) x's dtype: saved pre-reset membrane
+    g_s: torch.Tensor,  # (T, ...) x's dtype: cotangent of the spikes
+    g_vfin: torch.Tensor,  # (...) fp32: cotangent of v_final
+    p: LIFParams,
+):
+    """Plain reverse-time surrogate BPTT of the LIF scan, step for step what
+    the ``lif_scan_bwd`` kernel computes. Returns (g_x (T, ...) in x's
+    dtype, g_v0 (...) fp32). Under hard reset the spike is recomputed from
+    the saved (rounded) ``v_pre``."""
+    gv = g_vfin
+    g_x = [None] * v_pre.shape[0]
+    for t in range(v_pre.shape[0] - 1, -1, -1):
+        vp = v_pre[t].float()
+        shifted = vp - p.threshold
+        sur = surrogate_grad(shifted, p.surrogate_slope)
+        if p.reset == "soft":
+            dpost = 1.0 - p.threshold * sur
+        else:
+            dpost = (1.0 - (shifted >= 0).float()) - vp * sur
+        g_vpre = gv * dpost + g_s[t].float() * sur
+        g_x[t] = g_vpre.to(v_pre.dtype)
+        gv = p.decay * g_vpre
+    return (torch.stack(g_x) if g_x else v_pre.new_empty(v_pre.shape)), gv
+
+
+class _LIFScanReference(torch.autograd.Function):
+    """Differentiable plain LIF scan: the CPU counterpart of
+    kernels/lif.py::LIFScan, same residual, same recurrence."""
+
+    @staticmethod
+    def forward(ctx, x_t, v0, p: LIFParams):
+        s, vpre, vfin = lif_forward_reference(x_t, p, v0, with_residuals=True)
+        ctx.save_for_backward(vpre)
+        ctx.p = p
+        return s, vfin
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_s, g_vfin):
+        (vpre,) = ctx.saved_tensors
+        g_s, g_vfin = backward_cotangents(vpre, tuple(vpre.shape[1:]), g_s, g_vfin)
+        g_x, g_v0 = lif_backward_reference(vpre, g_s, g_vfin, ctx.p)
+        return g_x, g_v0, None
+
+
+def run_lif(
+    x_t: torch.Tensor, p: LIFParams, v0: torch.Tensor | None = None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """LIF dynamics over the leading time axis of any (T, ...) currents
+    (fp32 or bf16): returns (spikes (T, ...) in x's dtype, final membrane
+    (...) fp32). ``v0`` is an fp32 membrane of shape (...), zeros when None.
+
+    A CPU tensor takes the plain versions of this module. Any other goes to
+    the CUDA kernels of kernels/lif.py, which raise on what they cannot
+    take: the inference forward when nothing needs a gradient, else the
+    residual-saving forward with the reverse-time backward. The kernels
+    read a contiguous (T, N) array, so a strided view of ``x_t`` or ``v0``
+    is copied into a contiguous tensor first (one extra read and write of
+    it); the plain versions take any strides. Under a gradient both routes
+    save ``v_pre`` rounded to x's dtype, so in fp32 the gradients equal
+    those of :func:`lif_scan` and in bf16 they carry that rounding."""
+    if x_t.ndim < 1:
+        raise ValueError("run_lif needs a leading time axis")
+    if x_t.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"run_lif takes bf16/f32 currents, got {x_t.dtype}")
+    if v0 is None:
+        v0 = torch.zeros(x_t.shape[1:], dtype=torch.float32, device=x_t.device)
+    if v0.shape != x_t.shape[1:] or v0.dtype != torch.float32:
+        raise ValueError(
+            f"v0 must be fp32 {tuple(x_t.shape[1:])}, got {v0.dtype} {tuple(v0.shape)}"
+        )
+    if p.reset not in ("soft", "hard"):
+        raise ValueError(f"unknown reset '{p.reset}'")
+    grad = needs_grad(x_t, v0)
+    if x_t.device.type == "cpu":
+        if grad:
+            return _LIFScanReference.apply(x_t, v0, p)
+        s, _, v = lif_forward_reference(x_t, p, v0)
+        return s, v
+    from ..kernels.lif import LIFScan, lif_scan_fwd
+
+    x_t, v0 = x_t.contiguous(), v0.contiguous()
+    if grad:
+        return LIFScan.apply(x_t, v0, p)
+    return lif_scan_fwd(x_t, p, v0)

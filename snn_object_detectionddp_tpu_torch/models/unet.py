@@ -1,9 +1,10 @@
 """Temporal U-Net: spiking encoder over time, recurrent bottleneck, decoder.
 
 The encoder fuses P4/P5 by concatenation at matching scales, the
-bottleneck (ConvLSTM, or a spiking block whose membrane is the
-recurrence) carries state across frames, and the decoder upsamples with
-skip connections and 1x1-projects back to the feature widths.
+bottleneck (ConvLSTM, a token LSTM over the flattened map, or a spiking
+block whose membrane is the recurrence) carries state across frames, and
+the decoder upsamples with skip connections and 1x1-projects back to the
+feature widths.
 
 By default the decoder runs once on the final timestep and reads each
 encoder block's continuous membrane readout. ``all_steps=True`` runs it
@@ -19,6 +20,7 @@ from torch import nn
 from .convlstm import ConvLSTM2d
 from .layers import ConvBlock, Conv1x1, SpikingConvBlock, SpikingDownBlock, UpBlock, membrane_readout
 from .lif import LIFParams
+from .token_lstm import TokenLSTM
 
 
 class TemporalUNet(nn.Module):
@@ -29,11 +31,7 @@ class TemporalUNet(nn.Module):
                  base: int = 128, bottleneck: str = "convlstm",
                  dtype: torch.dtype = torch.bfloat16):
         super().__init__()
-        if bottleneck == "lstm":
-            raise NotImplementedError(
-                "the token-LSTM bottleneck is not ported yet; use 'convlstm' or 'lif'"
-            )
-        if bottleneck not in ("convlstm", "lif"):
+        if bottleneck not in ("convlstm", "lstm", "lif"):
             raise ValueError(f"unknown bottleneck '{bottleneck}'")
         self.lif, self.bottleneck_kind, self.dtype = lif, bottleneck, dtype
         ch_p3, ch_p4, ch_p5 = feat_channels
@@ -46,6 +44,8 @@ class TemporalUNet(nn.Module):
         self.down3 = SpikingDownBlock(c3, c4, lif, dtype=dtype)
         if bottleneck == "convlstm":
             self.bottleneck = ConvLSTM2d(c4, c4, dtype=dtype)
+        elif bottleneck == "lstm":
+            self.bottleneck = TokenLSTM(c4, dtype=dtype)
         else:
             self.bottleneck = SpikingConvBlock(c4, c4, lif, dtype=dtype)
         self.bottleneck_conv = ConvBlock(c4, c4, dtype=dtype)
@@ -77,7 +77,7 @@ class TemporalUNet(nn.Module):
         )
         d3, new_state["down3"] = self.down3(x3, state.get("down3"))
 
-        if self.bottleneck_kind == "convlstm":
+        if self.bottleneck_kind in ("convlstm", "lstm"):
             bott_seq, new_state["bottleneck"] = self.bottleneck(d3, state.get("bottleneck"))
         else:  # "lif": membrane potential is the recurrence
             spikes, v_final, *rb = self.bottleneck(
@@ -89,7 +89,7 @@ class TemporalUNet(nn.Module):
         if state_only:
             return None, new_state
         if all_steps:
-            if self.bottleneck_kind == "convlstm":
+            if self.bottleneck_kind in ("convlstm", "lstm"):
                 bott = bott_seq.reshape((t * b,) + tuple(bott_seq.shape[2:]))
             else:
                 bott = rb[0]  # already (T*B, h, w, c4)

@@ -1,7 +1,8 @@
 """Fixed-shape non-maximum suppression, batched over images.
 
 Candidates are top-k selected, suppression runs over a precomputed IoU
-matrix, and outputs are padded to ``max_det`` with a validity mask: the
+matrix (or, for large pools, greedily one IoU row at a time), and outputs
+are padded to ``max_det`` with a validity mask: the
 dict has ``boxes`` (B, max_det, 4), ``scores`` (B, max_det), ``classes``
 (B, max_det) int32 and ``valid`` (B, max_det) bool; invalid slots have
 score 0 and class -1. Ties in the top-k keep the lower index first
@@ -12,12 +13,12 @@ from __future__ import annotations
 
 import torch
 
-from .boxes import pairwise_iou
+from .boxes import EPS, box_area, pairwise_iou
 
 # Class-offset used for class-aware suppression (larger than any image dim).
 _CLS_OFFSET = 7680.0
-# Pools up to this size use the k x k IoU matrix; larger pools need the
-# O(k) greedy path, which is not ported yet.
+# Pools up to this size use the k x k IoU matrix; larger pools take the
+# greedy path, whose memory is O(k) (evaluation's 30,000-candidate pool).
 _MATRIX_PATH_MAX_K = 4096
 # Within the matrix path, pools up to this size iterate the whole-matrix
 # map to its fixed point (2-4 sweeps in practice); larger pools run the
@@ -74,10 +75,43 @@ def _nms_matrix(top_boxes, top_scores, top_cls, top_valid, iou_thres, max_det):
 
 
 def _nms_greedy(top_boxes, top_scores, top_cls, top_valid, iou_thres, max_det):
-    raise NotImplementedError(
-        f"pre-NMS pools above {_MATRIX_PATH_MAX_K} candidates need the greedy "
-        "O(k) NMS path, which is not ported yet; pass a smaller pre_nms_topk"
-    )
+    """Greedy NMS of (B, k) candidates: ``max_det`` sequential rounds of
+    (argmax score -> emit -> suppress one IoU row), every image of the
+    batch advancing together. Same results as the matrix path, but memory
+    is O(k) per image instead of O(k^2). A score tie goes to the lower
+    index (``torch.argmax`` returns the first maximum, as ``jnp.argmax``);
+    an image whose candidates are used up emits invalid slots."""
+    bsz = top_scores.shape[0]
+    offset_boxes = top_boxes + (top_cls.to(top_boxes.dtype) * _CLS_OFFSET)[..., None]
+    scores = torch.where(top_valid, top_scores, torch.zeros_like(top_scores))
+    # One IoU row a round, with pairwise_iou's arithmetic (so both paths
+    # compare the same IoU values) but the candidates' corners and areas
+    # taken once: a round is a handful of small launches.
+    lo, hi = offset_boxes[..., :2], offset_boxes[..., 2:]
+    area = box_area(offset_boxes)
+    picked, picked_scores = [], []
+    for _ in range(max_det):
+        i = torch.argmax(scores, dim=-1, keepdim=True)  # (B, 1)
+        s = scores.gather(1, i)
+        box = offset_boxes.gather(1, i[..., None].expand(bsz, 1, 4))
+        wh = (torch.minimum(box[..., 2:], hi) - torch.maximum(box[..., :2], lo)).clamp_(min=0.0)
+        inter = wh[..., 0] * wh[..., 1]
+        iou_row = inter / (area.gather(1, i) + area - inter + EPS)
+        scores = scores.masked_fill((s > 0.0) & (iou_row > iou_thres), 0.0)  # includes self
+        scores.scatter_(1, i, 0.0)
+        picked.append(i)
+        picked_scores.append(s)
+    idx = torch.cat(picked, -1)  # (B, max_det)
+    out_scores = torch.cat(picked_scores, -1)
+    valid = out_scores > 0.0
+    boxes = torch.gather(top_boxes, 1, idx[..., None].expand(bsz, max_det, 4))
+    classes = torch.gather(top_cls, 1, idx)
+    return {
+        "boxes": torch.where(valid[..., None], boxes, torch.zeros_like(boxes)),
+        "scores": torch.where(valid, out_scores, torch.zeros_like(out_scores)),
+        "classes": torch.where(valid, classes, torch.full_like(classes, -1)),
+        "valid": valid,
+    }
 
 
 def batched_nms(
@@ -96,7 +130,8 @@ def batched_nms(
       class_scores: (B, A, nc) per-class confidences in [0, 1].
       multi_label: a box may be emitted once per class above threshold;
         otherwise the argmax class only.
-      pre_nms_topk: pre-NMS candidate pool size, default 4*max_det.
+      pre_nms_topk: pre-NMS candidate pool size, default 4*max_det; pools
+        above 4096 candidates take the greedy path.
     """
     bsz, num_anchors, nc = class_scores.shape
     dev = class_scores.device

@@ -35,10 +35,11 @@ REPO = Path(__file__).resolve().parents[1]
 MAX_SPIKE_MISMATCH = 1e-3
 
 
-def _tiny_cfgs():
+def _tiny_cfgs(bottleneck="convlstm"):
     cfgs = []
     for mod in (jconfig, tconfig):
         cfg = mod.Config()
+        cfg.model.bottleneck = bottleneck
         cfg.model.num_classes = 3
         cfg.model.yolo_model_name = "yolo11n.pt"
         cfg.model.width_mult = 0.25
@@ -148,6 +149,45 @@ def test_detector_matches_jax_with_carried_state_and_all_steps(capsys):
         worst = max(report, key=report.get)
         print(f"\nspike-mismatch share per block: max {report[worst]:.2e} ({worst}), "
               f"{sum(v > 0 for v in report.values())} of {len(report)} block-calls nonzero")
+
+
+def test_lstm_bottleneck_detector_matches_jax_in_both_all_steps_modes():
+    """``bottleneck: lstm``: the six TokenLSTM leaves come across through
+    convert.py, and a window, a carried all_steps chunk and a carried
+    last-step call agree with the JAX detector, the (layers, B, hidden)
+    carry included. Same tolerances as the ConvLSTM model above."""
+    jcfg, tcfg = _tiny_cfgs("lstm")
+    jdet = JDetector.from_config(jcfg)
+    tdet = TDetector.from_config(tcfg, device="cpu")
+    jparams = jdet.init_params(jax.random.PRNGKey(1))
+    tparams = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
+    assert set(tparams) == {n for n, _ in tdet.module.named_parameters()}
+    lstm_leaves = {k for k in tparams if k.startswith("unet.bottleneck.")}
+    assert lstm_leaves == {f"unet.bottleneck.l{n}_{k}" for n in range(2)
+                           for k in ("w_ih", "w_hh", "bias")}
+    # the port's own init gives the same leaves and shapes
+    own = tdet.init_params(torch.Generator().manual_seed(0))
+    assert {k: v.shape for k, v in own.items()} == {k: v.shape for k, v in tparams.items()}
+
+    rng = np.random.RandomState(2)
+    window, chunk, step = (rng.rand(2, 2, 64, 64, 3).astype(np.float32) for _ in range(3))
+    fwd, fwd_all = _jax_forward(jdet, False), _jax_forward(jdet, True)
+    struct = jax.eval_shape(lambda p, f: jdet.apply(p, f)[1], jparams, jnp.asarray(window))
+    zeros = jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype), struct)
+    report = {}
+    j1 = _jax_run(fwd, jparams, window, zeros)
+    t1 = _port_run(tdet, tparams, window, None)
+    _check_call("window", j1, t1, report)
+    j2 = _jax_run(fwd_all, jparams, chunk, j1[1])
+    t2 = _port_run(tdet, tparams, chunk, t1[1], all_steps=True)
+    assert t2[0][0].shape[0] == 2 * 2
+    _check_call("all_steps", j2, t2, report)
+    j3 = _jax_run(fwd, jparams, step, j2[1])
+    t3 = _port_run(tdet, tparams, step, t2[1])
+    _check_call("carried", j3, t3, report)
+    for leaf_t, leaf_j in zip(t3[1]["unet"]["bottleneck"], j3[1]["unet"]["bottleneck"]):
+        assert tuple(leaf_t.shape) == (2, 2, 256) and leaf_t.dtype == torch.float32
+        np.testing.assert_allclose(leaf_t.numpy(), np.asarray(leaf_j), atol=1e-3)
 
 
 def test_fixture_checkpoint_through_convert_matches_jax():

@@ -31,7 +31,10 @@ def test_port_sources_found():
     assert "chip_smoke.py" in names
     assert "snn_object_detectionddp_tpu_torch/train/step.py" in names
     assert "snn_object_detectionddp_tpu_torch/losses/detection.py" in names
-    assert len(names) >= 28
+    for new in ("kernels/lif.py", "kernels/build.py", "models/token_lstm.py", "evals/map.py",
+                "evals/validator.py", "evals/__init__.py"):
+        assert f"snn_object_detectionddp_tpu_torch/{new}" in names
+    assert len(names) >= 34
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(REPO).as_posix())
@@ -99,3 +102,65 @@ def test_entry_points_default_to_cuda():
     assert inspect.signature(Detector.from_config).parameters["device"].default == "cuda"
     assert inspect.signature(serve.serve).parameters["device"].default == "cuda"
     assert inspect.signature(params_from_jax).parameters["device"].default == "cuda"
+
+
+def test_run_lif_takes_the_card_for_a_cuda_tensor_and_never_the_plain_version():
+    """run_lif picks its route by the tensor's device alone: a CPU tensor
+    runs the plain version; any other device goes to the kernel wrappers,
+    which raise on what they cannot take (here a meta tensor stands in for
+    a card this machine may not have). Without a card a CUDA request
+    raises when the tensor is made, before run_lif is reached."""
+    import torch
+
+    from snn_object_detectionddp_tpu_torch.kernels import lif as kernels_lif
+    from snn_object_detectionddp_tpu_torch.models.lif import LIFParams, run_lif
+
+    x = torch.zeros(2, 3, 4)
+    before = dict(kernels_lif.launch_counts)
+    s, v = run_lif(x, LIFParams())
+    assert s.device.type == v.device.type == "cpu"
+    assert kernels_lif.launch_counts == before  # no launch counted off the card
+    for grad in (False, True):
+        xm = torch.zeros(2, 3, 4, device="meta", requires_grad=grad)
+        with pytest.raises(ValueError, match="needs CUDA tensors"):
+            run_lif(xm, LIFParams())
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError)):
+            torch.zeros(2, 3, 4, device="cuda")
+    assert set(kernels_lif.KERNELS) == {"lif_scan_fwd", "lif_scan_fwd_res", "lif_scan_bwd"}
+
+
+def test_evaluation_runs_on_the_detectors_device():
+    """make_predict_fn and evaluate_batches take no device: they run on the
+    detector's, which defaults to the card and raises without one."""
+    import numpy as np
+    import torch
+
+    from snn_object_detectionddp_tpu_torch.config import Config
+    from snn_object_detectionddp_tpu_torch.evals import validator
+    from snn_object_detectionddp_tpu_torch.models.detector import Detector
+
+    for fn in (validator.make_predict_fn, validator.evaluate_batches, validator.evaluate_model):
+        assert "device" not in inspect.signature(fn).parameters
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="CUDA"):
+            validator.make_predict_fn(Detector.from_config(Config()))
+    cfg = Config()
+    cfg.model.yolo_model_name, cfg.model.width_mult = "yolo11n.pt", 0.25
+    cfg.runtime.precision = "f32"
+    det = Detector.from_config(cfg, device="cpu")
+    out = validator.make_predict_fn(det, max_det=5)(
+        det.init_params(), np.zeros((1, 1, 64, 64, 3), np.uint8))
+    assert out["boxes"].device.type == "cpu" and tuple(out["boxes"].shape) == (1, 5, 4)
+    assert not out["boxes"].requires_grad
+
+
+def test_kernel_sources_are_in_the_package():
+    from snn_object_detectionddp_tpu_torch.kernels import build
+
+    assert set(build.SOURCES) == {"affine_lif.cu", "lif_scan.cu"}
+    for name in (*build.SOURCES, *build.HEADERS):
+        assert (build.CSRC / name).is_file(), name
+    text = (build.CSRC / "lif_scan.cu").read_text()
+    for entry in ("lif_scan_fwd", "lif_scan_fwd_res", "lif_scan_bwd"):
+        assert f'extern "C" int {entry}(' in text

@@ -1,6 +1,6 @@
-"""The hand-written CUDA normalize+LIF kernels (inference forward,
-residual-saving forward, reverse-time backward) against their plain PyTorch
-versions, on the card. Every test here needs an NVIDIA GPU and skips with
+"""The hand-written CUDA normalize+LIF kernels and plain-LIF-scan kernels
+(each: inference forward, residual-saving forward, reverse-time backward)
+against their plain PyTorch versions, on the card. Every test here needs an NVIDIA GPU and skips with
 a reason elsewhere. The file imports no JAX, so on a card machine it runs
 without the JAX stack:
 
@@ -20,12 +20,16 @@ import pytest
 import torch
 
 from snn_object_detectionddp_tpu_torch.kernels import affine_lif as K
+from snn_object_detectionddp_tpu_torch.kernels import lif as KL
 from snn_object_detectionddp_tpu_torch.models.lif import (
     LIFParams,
     affine_lif_backward_reference,
     affine_lif_forward_reference,
     affine_lif_tb_reference,
+    lif_backward_reference,
+    lif_forward_reference,
     run_affine_lif_tb,
+    run_lif,
 )
 
 SUM_RTOL = 1e-5
@@ -199,3 +203,111 @@ def test_bwd_wrapper_rejects_bad_inputs(cuda_device):
         K.affine_lif_bwd(vpre, x, a, strided, g_v, LIFParams())
     with pytest.raises(ValueError, match="CUDA"):
         K.affine_lif_bwd(vpre.cpu(), x.cpu(), a.cpu(), g_s.cpu(), g_v.cpu(), LIFParams())
+
+
+# -- the plain LIF scan kernels (csrc/lif_scan.cu) ---------------------------
+
+# (T, ...) shapes: whole 16-byte vectors; the odd-size case of the JAX
+# package's own test (N = 10500: 4-wide in fp32 and in bf16); an odd N
+# (single elements); one row with a scalar tail; a 1-D input.
+SCAN_SHAPES = [(5, 2, 15, 20, 512), (4, 3, 50, 70), (3, 7, 9, 5), (1, 3, 50, 71), (2, 24)]
+SCAN_IDS = ["vec", "odd_10500", "odd_315", "one_row_tail", "flat"]
+
+
+def _scan_inputs(shape, dtype, device, seed=0):
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy((rng.randn(*shape) * 1.2).astype(np.float32)).to(dtype)
+    v0 = torch.from_numpy((0.3 * rng.randn(*shape[1:])).astype(np.float32))
+    g_s = torch.from_numpy(rng.randn(*shape).astype(np.float32)).to(dtype)
+    g_v = torch.from_numpy(rng.randn(*shape[1:]).astype(np.float32))
+    return tuple(t.to(device) for t in (x, v0, g_s, g_v))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", PARAMS, ids=["soft", "hard"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("shape", SCAN_SHAPES, ids=SCAN_IDS)
+def test_lif_scan_kernels_equal_plain(cuda_device, p, dtype, shape):
+    x, v0, g_s, g_v = _scan_inputs(shape, dtype, cuda_device)
+    before = dict(KL.launch_counts)
+    s1, vfin1 = KL.lif_scan_fwd(x, p, v0)
+    s, vpre, vfin = KL.lif_scan_fwd_res(x, p, v0)
+    g_x, g_v0 = KL.lif_scan_bwd(vpre, g_s, g_v, p)
+    assert KL.launch_counts == {k: before[k] + 1 for k in before}
+    s_r, vpre_r, vfin_r = lif_forward_reference(x, p, v0, with_residuals=True)
+    r_x, r_v0 = lif_backward_reference(vpre, g_s, g_v, p)
+    assert s.dtype == vpre.dtype == g_x.dtype == x.dtype
+    assert vfin.dtype == g_v0.dtype == torch.float32
+    assert torch.equal(s, s_r) and torch.equal(vfin, vfin_r) and torch.equal(vpre, vpre_r)
+    assert torch.equal(s1, s_r) and torch.equal(vfin1, vfin_r)
+    assert torch.equal(g_x, r_x) and torch.equal(g_v0, r_v0)
+
+
+@pytest.mark.cuda
+def test_lif_scan_unaligned_view_and_default_v0(cuda_device):
+    """A contiguous view at an odd storage offset breaks 16-byte alignment:
+    the launcher narrows the vector and stays exact. v0=None is zeros."""
+    p = LIFParams()
+    x, v0, g_s, g_v = _scan_inputs((3, 4, 40), torch.bfloat16, cuda_device)
+    for off in (1, 2, 4):
+        xs = x.reshape(-1)[off : off + 3 * 128].reshape(3, 128)
+        vs = v0.reshape(-1)[off : off + 128]
+        gs, gvs = g_s.reshape(-1)[off : off + 3 * 128].reshape(3, 128), g_v.reshape(-1)[off : off + 128]
+        s, vpre, vfin = KL.lif_scan_fwd_res(xs, p, vs)
+        s_r, vpre_r, vfin_r = lif_forward_reference(xs, p, vs, with_residuals=True)
+        assert torch.equal(s, s_r) and torch.equal(vpre, vpre_r) and torch.equal(vfin, vfin_r)
+        g_x, g_v0 = KL.lif_scan_bwd(vpre_r, gs, gvs, p)
+        r_x, r_v0 = lif_backward_reference(vpre_r, gs, gvs, p)
+        assert torch.equal(g_x, r_x) and torch.equal(g_v0, r_v0)
+    s, vfin = KL.lif_scan_fwd(x, p)
+    s_r, _, vfin_r = lif_forward_reference(x, p, torch.zeros_like(v0))
+    assert torch.equal(s, s_r) and torch.equal(vfin, vfin_r)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("p", PARAMS, ids=["soft", "hard"])
+def test_run_lif_dispatch_and_gradients(cuda_device, p):
+    """run_lif on CUDA tensors: one lif_scan_fwd without a gradient, one
+    lif_scan_fwd_res + one lif_scan_bwd with; gradients equal the plain
+    autograd function's on the same tensors; a strided input is copied and
+    gives the same result; an unused output's cotangent arrives as None."""
+    x, v0, g_s, g_v = _scan_inputs((4, 2, 9, 11, 24), torch.bfloat16, cuda_device)
+    with torch.no_grad():
+        before = dict(KL.launch_counts)
+        s, vfin = run_lif(x, p, v0)
+        assert KL.launch_counts == {**before, "lif_scan_fwd": before["lif_scan_fwd"] + 1}
+        s_t, vfin_t = run_lif(x.transpose(2, 3).contiguous().transpose(2, 3), p, v0)
+        assert torch.equal(s_t, s) and torch.equal(vfin_t, vfin)
+    from snn_object_detectionddp_tpu_torch.models.lif import _LIFScanReference
+
+    x.requires_grad_()
+    v0.requires_grad_()
+    for use_v in (True, False):
+        before = dict(KL.launch_counts)
+        s2, v2 = run_lif(x, p, v0)
+        outs, cots = ((s2, v2), (g_s, g_v)) if use_v else ((s2,), (g_s,))
+        got = torch.autograd.grad(outs, (x, v0), cots)
+        assert KL.launch_counts == {"lif_scan_fwd": before["lif_scan_fwd"],
+                                    "lif_scan_fwd_res": before["lif_scan_fwd_res"] + 1,
+                                    "lif_scan_bwd": before["lif_scan_bwd"] + 1}
+        s3, v3 = _LIFScanReference.apply(x, v0, p)
+        outs = (s3, v3) if use_v else (s3,)
+        ref = torch.autograd.grad(outs, (x, v0), cots)
+        assert torch.equal(s2, s) and torch.equal(s3, s)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+@pytest.mark.cuda
+def test_lif_scan_wrapper_rejects_bad_inputs(cuda_device):
+    x, v0, g_s, g_v = _scan_inputs((2, 4, 6, 8), torch.float32, cuda_device)
+    p = LIFParams()
+    with pytest.raises(ValueError, match="contiguous"):
+        KL.lif_scan_fwd(x.transpose(1, 2), p, v0.transpose(0, 1))
+    with pytest.raises(ValueError, match="bf16/f32"):
+        KL.lif_scan_fwd(x.half(), p, v0)
+    with pytest.raises(ValueError, match="v0 must be"):
+        KL.lif_scan_fwd(x, p, v0.double())
+    with pytest.raises(ValueError, match="g_s must be"):
+        KL.lif_scan_bwd(x, g_s.bfloat16(), g_v, p)
+    with pytest.raises(ValueError, match="CUDA"):
+        KL.lif_scan_fwd(x.cpu(), p, v0.cpu())

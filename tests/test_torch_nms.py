@@ -72,10 +72,74 @@ def test_single_image_nms_toy():
 
 
 def test_greedy_pool_not_ported():
+    """Kept under its first name: a pool above 4096 candidates used to
+    raise; it now takes the greedy path and must equal JAX's."""
     boxes, scores = _boxes(1, 5000, 1, seed=0)
-    with pytest.raises(NotImplementedError, match="greedy"):
-        tnms.batched_nms(torch.from_numpy(boxes), torch.from_numpy(scores),
-                         conf_thres=0.0, pre_nms_topk=4097)
+    kw = dict(conf_thres=0.0, iou_thres=0.45, max_det=20, pre_nms_topk=4097)
+    got = tnms.batched_nms(torch.from_numpy(boxes), torch.from_numpy(scores), **kw)
+    ref = jnms.batched_nms(jnp.asarray(boxes), jnp.asarray(scores), **kw)
+    assert int(got["valid"].sum()) == 20
+    _compare(got, ref)
+
+
+def _candidates(b, k, nc, seed, n_invalid=0):
+    """Top-k candidates as batched_nms hands them to its two NMS paths:
+    sorted by descending score, the last ``n_invalid`` below the threshold."""
+    boxes, scores = _boxes(b, k, nc, seed)
+    top_scores, top_idx = tnms._top_k(torch.from_numpy(scores).max(-1).values, k)
+    top_cls = torch.gather(torch.from_numpy(scores).argmax(-1).to(torch.int32), -1, top_idx)
+    top_boxes = torch.gather(torch.from_numpy(boxes), 1, top_idx[..., None].expand(b, k, 4))
+    top_valid = torch.ones(b, k, dtype=torch.bool)
+    if n_invalid:
+        top_valid[:, -n_invalid:] = False
+        top_scores[:, -n_invalid:] = -1.0
+    return top_boxes, top_scores, top_cls, top_valid
+
+
+@pytest.mark.parametrize("k,max_det,n_invalid", [(300, 50, 0), (1500, 300, 200), (4096, 100, 0),
+                                                 (40, 60, 30)],
+                         ids=["fixpoint_300", "sweep_1500", "matrix_limit_4096", "runs_dry"])
+def test_greedy_equals_matrix_path(k, max_det, n_invalid):
+    """The O(k) greedy path and the k x k matrix path are the same function
+    wherever both can run: same kept boxes in the same order, invalid slots
+    zeroed alike."""
+    cand = _candidates(2, k, 3, seed=k, n_invalid=n_invalid)
+    want = tnms._nms_matrix(*cand, 0.5, max_det)
+    got = tnms._nms_greedy(*cand, 0.5, max_det)
+    n = want["scores"].shape[-1]  # the matrix path returns min(max_det, k) slots
+    assert got["scores"].shape[-1] == max_det
+    for key in want:
+        assert torch.equal(got[key][:, :n], want[key]), key
+    assert not got["valid"][:, n:].any()
+    assert 0 < int(want["valid"].sum()) <= 2 * min(max_det, k - n_invalid)
+
+
+@pytest.mark.parametrize("multi_label", [False, True], ids=["single", "multi_label"])
+def test_greedy_pool_matches_jax(multi_label):
+    """Evaluation's setting on a pool above the matrix limit: conf 0.001,
+    iou 0.6, pre_nms_topk 30000 over 5,000 anchors (15,000 candidates with
+    multi_label) against JAX non_max_suppression, image by image."""
+    boxes, scores = _boxes(2, 5000, 3, seed=11)
+    kw = dict(conf_thres=0.001, iou_thres=0.6, max_det=300, pre_nms_topk=30000,
+              multi_label=multi_label)
+    got = tnms.batched_nms(torch.from_numpy(boxes), torch.from_numpy(scores), **kw)
+    assert int(got["valid"].sum()) > 100
+    for i in range(2):
+        ref = jnms.non_max_suppression(jnp.asarray(boxes[i]), jnp.asarray(scores[i]), **kw)
+        _compare({k: v[i] for k, v in got.items()}, ref)
+
+
+def test_greedy_ties_take_the_lower_index():
+    """Equal scores: argmax picks the first, as jnp.argmax does."""
+    boxes = np.array([[[0, 0, 10, 10], [100, 100, 110, 110], [0, 0, 10, 10.5]]], np.float32)
+    boxes = np.repeat(boxes, 1400, 1)  # 4,200 candidates: above the matrix limit
+    scores = np.full((1, 4200, 1), 0.5, np.float32)
+    kw = dict(conf_thres=0.1, iou_thres=0.5, max_det=4, pre_nms_topk=30000)
+    got = tnms.batched_nms(torch.from_numpy(boxes), torch.from_numpy(scores), **kw)
+    ref = jnms.batched_nms(jnp.asarray(boxes), jnp.asarray(scores), **kw)
+    _compare(got, ref)
+    assert got["valid"][0].tolist() == [True, True, False, False]
+    assert got["boxes"][0, 0].tolist() == [0, 0, 10, 10]
 
 
 def test_box_ops_match_jax():

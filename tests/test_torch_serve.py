@@ -25,8 +25,9 @@ from snn_object_detectionddp_tpu_torch.serve import DetectionService, _Job, make
 H = W = 64
 
 
-def _service(**kw):
+def _service(bottleneck="convlstm", **kw):
     cfg = Config()
+    cfg.model.bottleneck = bottleneck
     cfg.model.num_classes = 3
     cfg.model.yolo_model_name = "yolo11n.pt"
     cfg.model.width_mult = 0.25
@@ -128,6 +129,44 @@ def test_state_axes_and_lru_bound():
         for s in range(4):
             svc.detect(f"l{s}", _frame(s))
         assert svc.num_streams == 2 and set(svc._states) == {"l2", "l3"}
+    finally:
+        svc.stop()
+
+
+def test_lstm_bottleneck_streams_batched_equal_alone():
+    """``bottleneck: lstm``: the TokenLSTM carry is (layers, B, hidden), so
+    its batch axis is 1 where every other state leaf's is 0. The service
+    finds it by diffing a B=1 and a B=2 probe; two streams micro-batched
+    into one forward must equal the same streams served alone, frame after
+    frame (the carry is stacked, advanced and split along the right axis)."""
+    svc = _service("lstm", max_streams=8, max_batch=2, max_clip=2)
+    axes = []
+    tree_map(axes.append, svc._state_axes)
+    assert len(axes) == 19 and sorted(set(axes)) == [0, 1] and axes.count(1) == 2
+    assert [tuple(t.shape) for t in svc._zero_state1["unet"]["bottleneck"]] == [(2, 1, 256)] * 2
+    jobs = {s: [_Job(f"s{s}", _frame(30 * s + i)) for i in range(3)] for s in range(2)}
+    for i in range(3):
+        for s in range(2):
+            svc._q.put(jobs[s][i])
+    svc.start()
+    try:
+        batched = {s: [j.reply.get(timeout=120) for j in js] for s, js in jobs.items()}
+        assert all(r["batch"] == 2 for rs in batched.values() for r in rs)
+        for s in range(2):
+            alone = [svc.detect(f"alone{s}", _frame(30 * s + i)) for i in range(3)]
+            assert all(r["batch"] == 1 for r in alone)
+            for a, b in zip(batched[s], alone):
+                _same(a, b)
+            assert alone[1]["scores"] != alone[0]["scores"]  # the state advanced
+            for got, want in zip(svc._states[f"s{s}"]["unet"]["bottleneck"],
+                                 svc._states[f"alone{s}"]["unet"]["bottleneck"]):
+                assert tuple(got.shape) == (2, 1, 256)
+                torch.testing.assert_close(got, want, atol=1e-5, rtol=0)
+        # a clip of the lstm model equals its frames one by one
+        clip = np.stack([_frame(70 + i) for i in range(2)])
+        seq = [svc.detect("clip_seq", clip[i]) for i in range(2)]
+        for a, b in zip(svc.detect_clip("clip_par", clip)["frames"], seq):
+            _same(a, b)
     finally:
         svc.stop()
 
