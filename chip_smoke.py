@@ -6,8 +6,13 @@ Run from the repository root:  python3 chip_smoke.py
    (one nvcc per source, started together).
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes the main paths give it: the normalize+LIF inference forward
-   (A1), residual-saving forward (A2) and surrogate-BPTT backward (A3), the
-   last also launched twice for bitwise-equal affine gradients; and the
+   (A1) at every (T, B) the paths launch it with (a served frame, a
+   micro-batch of 4, a clip with readouts, the evaluation window: its
+   launch plan depends on B), residual-saving forward (A2) and
+   surrogate-BPTT backward (A3), the last also launched twice for
+   bitwise-equal affine gradients, the second time under an operator log
+   that must show allocations only (the affine gradients are added up
+   inside the one launch, with no fold in the wrapper); and the
    plain LIF scan's forward (B1), residual-saving forward (B2) and
    backward (B3) at the same 20 shapes taken as (T, B*H*W*C), plus odd
    sizes, every output bit for bit.
@@ -38,7 +43,10 @@ Run from the repository root:  python3 chip_smoke.py
    tokens) to two streams through DetectionService, against the same
    streams served alone.
 9. Times each kernel beside its byte bound and its plain version (device
-   time only; host enqueue is hidden and checked to be hidden), the
+   time only; host enqueue is hidden and checked to be hidden): A1 per
+   served frame (T=1, B=1) beside the cost of 20 launches of a kernel that
+   does nothing, and at T=5, B=2 as evaluation launches it; A2 and A3 per
+   train step with the blocks each shape launches; B1-B3. Also the
    serving step at B=1 and B=4 over several windows of 100 dispatches
    with the spread and the dispatching thread's CPU time, detect()
    latency over 300 requests, the device (kernel) time of a B=1 step
@@ -63,6 +71,7 @@ import time
 
 import numpy as np
 import torch
+from torch.utils._python_dispatch import TorchDispatchMode
 
 SEED = 0
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
@@ -243,14 +252,32 @@ def bwd_inputs(K, shape_bhwc, t_steps, p, gen):
     return vpre, x4, a, g_s, g_v
 
 
+class OpLog(TorchDispatchMode):
+    """Names of the PyTorch operators dispatched while it is entered."""
+
+    def __init__(self):
+        super().__init__()
+        self.ops = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.ops.append(str(func))
+        return func(*args, **(kwargs or {}))
+
+
 def check_training_kernels(K, lif_mod, lif_shapes, gen) -> dict:
     """A2 and A3 against their plain versions at every main-path shape,
     B=2, T=5, bf16, soft and hard reset, seeded cotangents. Raises on a
-    disagreement; returns the largest absolute errors per kernel."""
+    disagreement; returns the largest absolute errors per kernel.
+
+    The backward's second call at a shape (its scratch is set up by then)
+    runs under an operator log: the wrapper may allocate its outputs and
+    launch its one kernel, and dispatch no other PyTorch operator (no
+    ``sum``, no fill, no copy)."""
     LIFParams = lif_mod.LIFParams
     errs = {"affine_lif_fwd_res": 0.0, "affine_lif_bwd": 0.0}
     exact = {"spikes": True, "v_final": True, "v_pre": True, "g_x": True, "g_v0": True}
     sum_rel = 0.0
+    wrapper_ops = set()  # every operator a steady-state backward call dispatched
     for name, (_, hh, ww, cc) in lif_shapes:
         for p in (LIFParams(), LIFParams(reset="hard")):
             tag = f"{name} {p.reset}"
@@ -278,8 +305,16 @@ def check_training_kernels(K, lif_mod, lif_shapes, gen) -> dict:
             g_v = torch.randn(v0.shape, device="cuda", generator=gen)
             g_x, g_a, g_b, g_v0 = K.affine_lif_bwd(vpre, x4, a, g_s, g_v, p)
             r_x, r_a, r_b, r_v0 = lif_mod.affine_lif_backward_reference(vpre, x4, a, g_s, g_v, p)
-            again = K.affine_lif_bwd(vpre, x4, a, g_s, g_v, p)
+            c0 = K.launch_counts["affine_lif_bwd"]
+            with OpLog() as log:
+                again = K.affine_lif_bwd(vpre, x4, a, g_s, g_v, p)
             torch.cuda.synchronize()
+            wrapper_ops.update(log.ops)
+            if (K.launch_counts["affine_lif_bwd"] != c0 + 1
+                    or not all(op.startswith("aten.empty") for op in log.ops)):
+                raise AssertionError(f"A3 {tag}: one backward call made "
+                                     f"{K.launch_counts['affine_lif_bwd'] - c0} launches and "
+                                     f"dispatched {log.ops}; want one launch and allocations only")
             if not (torch.equal(again[1], g_a) and torch.equal(again[2], g_b)):
                 raise AssertionError(f"A3 {tag}: two launches gave different da/db")
             gx, rx = g_x.float(), r_x.float()
@@ -307,7 +342,8 @@ def check_training_kernels(K, lif_mod, lif_shapes, gen) -> dict:
     print(f"training kernels ok: affine_lif_fwd_res and affine_lif_bwd vs plain at "
           f"{len(lif_shapes)} shapes x soft/hard (B={B_TRAIN} T={T_TRAIN} bf16): bit-equal "
           f"{exact}; max_abs_err {errs}; da/db worst error {sum_rel:.3g} of the summed "
-          f"|terms| (limit {SUM_RTOL}); da/db bitwise equal across two launches")
+          f"|terms| (limit {SUM_RTOL}); da/db bitwise equal across two launches; a backward "
+          f"call is one launch and dispatches only {sorted(wrapper_ops)} (no sum(0), no fill)")
     return errs
 
 
@@ -479,6 +515,9 @@ def run_training_slice(card, K, det, cfg, n_blocks, rng) -> dict:
     a3 = sum(e.self_device_time_total for e in evs if "affine_lif_bwd_kernel" in e.key) / 1e3 / n
     if a2 <= 0 or a3 <= 0:
         raise AssertionError("the profiler saw no A2 or A3 kernel in a train step")
+    n_a3 = sum(e.count for e in evs if "affine_lif_bwd_kernel" in e.key) / n
+    if n_a3 != n_blocks:
+        raise AssertionError(f"{n_a3} affine_lif_bwd_kernel launches per train step, want {n_blocks}")
     med = float(np.median(step_ms[1:]))
     top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
     print(f"[{card}] train step B={B_TRAIN} T={T_TRAIN} (host clock, synchronised, "
@@ -486,7 +525,8 @@ def run_training_slice(card, K, det, cfg, n_blocks, rng) -> dict:
           f"{spread(step_ms[1:])} (first {step_ms[0]:.3f}); profiler x{n}: device (kernel) "
           f"time {dev_ms:.3f} ms/step, busy {dev_ms / med:.1%} of the median step; "
           f"affine_lif_fwd_res {a2:.4f} ms/step ({a2 / dev_ms:.2%}), affine_lif_bwd "
-          f"{a3:.4f} ms/step ({a3 / dev_ms:.2%}); {sum(e.count for e in evs) / n:.0f} "
+          f"{a3:.4f} ms/step ({a3 / dev_ms:.2%}) in {n_a3:.0f} launches/step, its sums "
+          f"included; {sum(e.count for e in evs) / n:.0f} "
           f"kernels/step; peak memory through train_loop {peak_gb:.2f} GiB; top: "
           + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / n:.3f} ms" for e in top))
     return launches
@@ -553,26 +593,32 @@ def gradient_check(det_gpu, det_cpu, params, rng) -> None:
 
 def time_training_kernels(card, K, lif_mod, lif_shapes, gen) -> dict:
     """A2 and A3 per launch at the 20 shapes (B=2, T=5, bf16) beside their
-    byte bounds and plain versions; returns the sums per train step."""
+    byte bounds, plain versions and the blocks each launches, and A1 at
+    the same T and B (as the evaluation forward launches it); returns the
+    sums over the 20 shapes."""
     p = lif_mod.LIFParams()
+    t5 = f"affine_lif_fwd T={T_TRAIN} B={B_TRAIN}"
     sums = {k: {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
-            for k in ("affine_lif_fwd_res", "affine_lif_bwd")}
+            for k in ("affine_lif_fwd_res", "affine_lif_bwd", t5)}
     for name, (_, hh, ww, cc) in lif_shapes:
         n = B_TRAIN * hh * ww * cc
         shp = (B_TRAIN, hh, ww, cc)
-        fwd_bytes = lif_bytes_res(n, T_TRAIN, cc, B_TRAIN)
-        bwd_bytes = lif_bytes_bwd(n, T_TRAIN, cc, B_TRAIN)
         make_f = lambda: lif_inputs(shp, T_TRAIN, gen)  # noqa: E731
         make_b = lambda: bwd_inputs(K, shp, T_TRAIN, p, gen)  # noqa: E731
+        fwd_blocks = K.fwd_plan(B_TRAIN, hh * ww, cc, torch.bfloat16, True).blocks(B_TRAIN)
+        bwd_blocks = K.bwd_plan(T_TRAIN, B_TRAIN, hh * ww, cc, torch.bfloat16, True).blocks(B_TRAIN)
         rows = (
-            ("affine_lif_fwd_res", fwd_bytes, 10, make_f,
+            ("affine_lif_fwd_res", lif_bytes_res(n, T_TRAIN, cc, B_TRAIN), 10, fwd_blocks, make_f,
              lambda *t: K.affine_lif_fwd_res(*t[:3], p, t[3]),
              lambda *t: lif_mod.affine_lif_forward_reference(*t[:3], p, t[3], with_vpre=True)),
-            ("affine_lif_bwd", bwd_bytes, 25, make_b,
+            ("affine_lif_bwd", lif_bytes_bwd(n, T_TRAIN, cc, B_TRAIN), 25, bwd_blocks, make_b,
              lambda *t: K.affine_lif_bwd(*t, p),
              lambda *t: lif_mod.affine_lif_backward_reference(*t, p)),
+            (t5, lif_bytes(n, T_TRAIN, cc, B_TRAIN, False), 10, fwd_blocks, make_f,
+             lambda *t: K.affine_lif_fwd(*t[:3], p, t[3]),
+             lambda *t: lif_mod.affine_lif_tb_reference(*t[:3], p, t[3])),
         )
-        for kname, nbytes, flops, make, kern, plain in rows:
+        for kname, nbytes, flops, blocks, make, kern, plain in rows:
             km = time_cuda(kern, make, nbytes)
             pm = time_cuda(plain, make, nbytes)
             bm = max(nbytes / HBM_BYTES_PER_S, flops * n * T_TRAIN / FP32_FLOPS) * 1e3
@@ -580,11 +626,12 @@ def time_training_kernels(card, K, lif_mod, lif_shapes, gen) -> dict:
             sums[kname]["plain_ms"] += pm
             sums[kname]["bound_ms"] += bm
             print(f"[{card}] {kname} {name} B={B_TRAIN} T={T_TRAIN} {(hh, ww, cc)}: "
-                  f"{km * 1e3:.2f} us (bound {bm * 1e3:.2f} us, {bm / km:.0%} of bound; "
-                  f"plain {pm * 1e3:.2f} us)")
+                  f"{km * 1e3:.2f} us in {blocks} blocks (bound {bm * 1e3:.2f} us, {bm / km:.0%} "
+                  f"of bound; plain {pm * 1e3:.2f} us)")
     for kname, v in sums.items():
-        print(f"[{card}] {kname} one train step (20 blocks, B={B_TRAIN} T={T_TRAIN} bf16): "
-              f"kernel {v['ms']:.4f} ms, bound {v['bound_ms']:.4f} ms, plain {v['plain_ms']:.4f} ms")
+        print(f"[{card}] {kname} summed over the 20 blocks (B={B_TRAIN} T={T_TRAIN} bf16): "
+              f"kernel {v['ms']:.4f} ms, bound {v['bound_ms']:.4f} ms "
+              f"({v['bound_ms'] / v['ms']:.0%} of bound), plain {v['plain_ms']:.4f} ms")
     return sums
 
 
@@ -1064,34 +1111,48 @@ def main() -> None:
     # -- phase 1: kernel vs plain version at the 20 main-path shapes --------
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     max_err, n_flips, n_near, n_checked = 0.0, 0, 0, 0
-    cases = [(1, False, LIFParams())] + [
-        (T_CLIP, True, LIFParams(reset=r)) for r in ("soft", "hard")
-    ]
+    exact = {"spikes": True, "v_final": True, "readouts": True}
+    # (T, B, readouts, params): the launch plan and the kernel's instance
+    # depend on B, so every (T, B) a main path launches A1 with is held
+    # against the plain version: a served frame, micro-batches of 2 and 4,
+    # a clip with readouts (alone and at B=2), the evaluation window.
+    cases = [(1, bsz, False, LIFParams()) for bsz in (1, 2, 4)] + [
+        (T_CLIP, bsz, True, LIFParams(reset=r)) for bsz in (1, 2) for r in ("soft", "hard")
+    ] + [(T_TRAIN, B_TRAIN, False, LIFParams())]
+    plans = set()
     for name, (_, hh, ww, cc) in lif_shapes:
-        for t_steps, readouts, p in cases:
-            x4, a, b, v0 = lif_inputs((2, hh, ww, cc), t_steps, gen)
+        for t_steps, bsz, readouts, p in cases:
+            tag = f"{name} T={t_steps} B={bsz} {p.reset}"
+            x4, a, b, v0 = lif_inputs((bsz, hh, ww, cc), t_steps, gen)
+            plan = K.fwd_plan(bsz, hh * ww, cc, x4.dtype, True)
+            plans.add((plan.vec, plan.ppt, plan.threads))
             got = K.affine_lif_fwd(x4, a, b, p, v0, readouts)
             ref = affine_lif_tb_reference(x4, a, b, p, v0, readouts)
             torch.cuda.synchronize()
             near = near_threshold(x4, a, b, p, v0)
             flips = got[0] != ref[0]
             if (flips & ~near).any():
-                raise AssertionError(f"{name} T={t_steps} {p.reset}: spikes differ away from threshold")
+                raise AssertionError(f"{tag}: spikes differ away from threshold")
             n_flips += int(flips.sum())
             n_near += int(near.sum())
             n_checked += flips.numel()
             v_err = (got[1] - ref[1]).abs().max().item()
             if v_err > V_ATOL:
-                raise AssertionError(f"{name}: v_final error {v_err}")
+                raise AssertionError(f"{tag}: v_final error {v_err}")
             max_err = max(max_err, v_err)
+            exact["spikes"] &= not bool(flips.any())
+            exact["v_final"] &= torch.equal(got[1], ref[1])
             if readouts:
                 r_err = ((got[2].float() - ref[2].float()).abs()
                          / ref[2].float().abs().clamp(min=1.0)).max().item()
                 if r_err > READ_RTOL:
-                    raise AssertionError(f"{name}: readout error {r_err}")
+                    raise AssertionError(f"{tag}: readout error {r_err}")
                 max_err = max(max_err, (got[2].float() - ref[2].float()).abs().max().item())
+                exact["readouts"] &= torch.equal(got[2], ref[2])
     print(f"phase 1 ok: affine_lif_fwd vs plain at {n_blocks} shapes x {len(cases)} cases "
-          f"(B=2 bf16; T=1, T={T_CLIP}+readouts soft/hard): max_abs_err {max_err}, "
+          f"(bf16; (T, B, readouts, reset) "
+          f"{[(t, bs, r, p.reset) for t, bs, r, p in cases]}; (vec, pixels a thread, threads) "
+          f"of the plans {sorted(plans)}): bit-equal {exact}; max_abs_err {max_err}, "
           f"spike flips {n_flips} of {n_checked} (near-threshold |v_pre-theta|<{SPIKE_EPS}: {n_near})")
 
     train_errs = check_training_kernels(K, lif_mod, lif_shapes, gen)
@@ -1203,6 +1264,18 @@ def main() -> None:
         print(f"[{card}] affine_lif_fwd one frame (20 blocks, B=1 T=1 bf16): kernel {k_ms:.4f} ms, "
               f"bound {bound_ms:.4f} ms ({lif_bytes(lif_elems, 1, 0, 0, False) / 1e6:.1f} MB), "
               f"plain {p_ms:.4f} ms")
+        # What 20 launches cost before any byte moves: a kernel that does
+        # nothing, launched back to back the same way, at the smallest and
+        # the largest grid of the frame.
+        grids = [K.fwd_plan(1, hh * ww, cc, torch.bfloat16, True).blocks(1)
+                 for _, (_, hh, ww, cc) in lif_shapes]
+        floors = {g: time_cuda(lambda g=g: K.empty_launch(torch.device("cuda"), g), tuple, 1)
+                  for g in sorted(set(grids))}
+        floor_ms = sum(floors[g] for g in grids)
+        print(f"[{card}] launch floor: an empty kernel of 128-thread blocks back to back takes "
+              + ", ".join(f"{floors[g] * 1e3:.2f} us at {g} blocks" for g in (min(grids), max(grids)))
+              + f"; at the frame's 20 grids {floor_ms:.4f} ms, so affine_lif_fwd streams for "
+              f"{k_ms - floor_ms:.4f} ms of its {k_ms:.4f} ms per frame (bound {bound_ms:.4f} ms)")
 
         serve_ms = {}
         for k in (1, 4):

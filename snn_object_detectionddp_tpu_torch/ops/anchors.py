@@ -14,7 +14,7 @@ def make_anchors(
     strides: list[int],
     offset: float = 0.5,
     dtype: torch.dtype = torch.float32,
-    device: torch.device | str = "cpu",
+    device: torch.device | str = "cuda",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Anchor points (A, 2) concatenated over scales and each anchor's
     stride (A, 1), for a list of (H, W) feature shapes."""

@@ -98,8 +98,10 @@ def test_entry_points_default_to_cuda():
     from snn_object_detectionddp_tpu_torch import serve
     from snn_object_detectionddp_tpu_torch.convert import params_from_jax
     from snn_object_detectionddp_tpu_torch.models.detector import Detector
+    from snn_object_detectionddp_tpu_torch.ops.anchors import make_anchors
 
     assert inspect.signature(Detector.from_config).parameters["device"].default == "cuda"
+    assert inspect.signature(make_anchors).parameters["device"].default == "cuda"
     assert inspect.signature(serve.serve).parameters["device"].default == "cuda"
     assert inspect.signature(params_from_jax).parameters["device"].default == "cuda"
 

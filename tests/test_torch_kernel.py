@@ -1,7 +1,7 @@
 """The hand-written CUDA normalize+LIF kernels and plain-LIF-scan kernels
 (each: inference forward, residual-saving forward, reverse-time backward)
-against their plain PyTorch versions, on the card. Every test here needs an NVIDIA GPU and skips with
-a reason elsewhere. The file imports no JAX, so on a card machine it runs
+against their plain PyTorch versions, on the card. Every test marked ``cuda`` needs an NVIDIA GPU
+and skips with a reason elsewhere. The file imports no JAX, so on a card machine it runs
 without the JAX stack:
 
     python -m pytest tests/test_torch_kernel.py -m cuda --noconftest -q
@@ -56,8 +56,12 @@ def _inputs(t, b, h, w, c, dtype, seed=0):
 @pytest.mark.cuda
 @pytest.mark.parametrize("p", PARAMS, ids=["soft", "hard"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
-@pytest.mark.parametrize("shape", [(1, 2, 15, 20, 512), (3, 2, 7, 9, 24), (2, 1, 3, 5, 7)],
-                         ids=["vec", "vec_odd_hw", "scalar_c"])
+@pytest.mark.parametrize("shape", [(1, 2, 15, 20, 512), (3, 2, 7, 9, 24), (2, 1, 3, 5, 7),
+                                   (2, 3, 9, 7, 88), (2, 3, 9, 7, 44), (1, 1, 120, 160, 96),
+                                   (2, 3, 160, 100, 48)],
+                         ids=["vec", "vec_odd_hw", "scalar_c", "b3_ragged_channel_tile",
+                              "b3_ragged_channel_tile_f32", "stem_one_sample",
+                              "two_pixels_a_thread"])
 @pytest.mark.parametrize("readouts", [False, True])
 def test_kernel_equals_plain(cuda_device, p, dtype, shape, readouts):
     args = [t.to(cuda_device) for t in _inputs(*shape, dtype)]
@@ -96,9 +100,19 @@ def test_wrapper_rejects_bad_inputs(cuda_device):
         K.affine_lif_fwd(x[:1], a, b, LIFParams(), v0)
 
 
+# The later shapes cross the edges of the kernels' tiles: C that is no
+# multiple of the channel tile (88 = 64 + 24 in bf16, 44 = 32 + 12 in fp32:
+# 11 vectors, which no tile divides, so the last tile's lanes are masked), H*W that is no
+# multiple of a block's pixel run, three samples, two and four pixels a
+# thread in the forward with a two-level partial-row tree in the backward,
+# and more steps than the backward parks in shared memory between two
+# barriers.
 SHAPES = [(1, 2, 15, 20, 512), (3, 2, 7, 9, 24), (2, 1, 3, 5, 7), (5, 2, 13, 11, 48),
-          (4, 1, 3, 2, 2048)]
-SHAPE_IDS = ["vec", "vec_odd_hw", "scalar_c", "c48", "two_channel_tiles"]
+          (4, 1, 3, 2, 2048), (2, 3, 9, 7, 88), (2, 3, 9, 7, 44), (2, 3, 160, 100, 48),
+          (1, 3, 160, 150, 96), (20, 1, 5, 6, 64)]
+SHAPE_IDS = ["vec", "vec_odd_hw", "scalar_c", "c48", "two_channel_tiles",
+             "b3_ragged_channel_tile", "b3_ragged_channel_tile_f32", "two_pixels_a_thread",
+             "four_pixels_a_thread", "chunked_steps"]
 
 
 def _cotangents(x, v0, seed=1):
@@ -157,6 +171,73 @@ def test_bwd_equals_plain(cuda_device, p, dtype, shape):
     # two launches on the same inputs: bitwise-equal sums (no atomics)
     again = K.affine_lif_bwd(vpre, x, a, g_s, g_v, p)
     assert torch.equal(again[1], g_a) and torch.equal(again[2], g_b)
+
+
+def test_tile_edge_shapes_take_the_planned_paths():
+    """The shapes above reach what their names say (the plan is Python:
+    this test needs no card)."""
+    shapes = dict(zip(SHAPE_IDS, SHAPES))
+    bwd = {i: K.bwd_plan(s[0], s[1], s[2] * s[3], s[4], torch.bfloat16, True)
+           for i, s in shapes.items()}
+    fwd = {i: K.fwd_plan(s[1], s[2] * s[3], s[4], torch.bfloat16, True) for i, s in shapes.items()}
+    for plans in (fwd, bwd):  # 11 vectors in tiles of 8: the second tile is ragged
+        assert (plans["b3_ragged_channel_tile"].cvt, plans["b3_ragged_channel_tile"].c_tiles) == (8, 2)
+    s44 = shapes["b3_ragged_channel_tile_f32"]
+    f32 = K.bwd_plan(s44[0], s44[1], s44[2] * s44[3], s44[4], torch.float32, True)
+    assert (f32.vec, f32.cvt, f32.c_tiles) == (4, 8, 2)
+    assert bwd["c48"].cvt == 2 and bwd["c48"].c_tiles == 3  # exact tiles of one sector
+    assert fwd["two_pixels_a_thread"].ppt == 2 and len(bwd["two_pixels_a_thread"].fold_rows) == 2
+    assert fwd["four_pixels_a_thread"].ppt == 4 and len(bwd["four_pixels_a_thread"].fold_rows) == 2
+    assert bwd["chunked_steps"].t_chunk < shapes["chunked_steps"][0]
+    assert bwd["vec"].threads == 256 and bwd["scalar_c"].threads == 128
+
+
+@pytest.mark.cuda
+def test_bwd_on_two_streams_is_bitwise_repeatable(cuda_device):
+    """50 launches of the backward on one input, alternating between two
+    streams: each stream has its own tickets and partial-row scratch, so
+    the launches may overlap, and every one gives the same da/db bits."""
+    p = LIFParams()
+    x, a, b, v0 = (t.to(cuda_device) for t in _inputs(5, 2, 15, 20, 512, torch.bfloat16))
+    _, vpre, _ = K.affine_lif_fwd_res(x, a, b, p, v0)
+    g_s, g_v = _cotangents(x, v0)
+    first = K.affine_lif_bwd(vpre, x, a, g_s, g_v, p)
+    torch.cuda.synchronize()
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    outs = []
+    for i in range(50):
+        with torch.cuda.stream(streams[i % 2]):
+            outs.append(K.affine_lif_bwd(vpre, x, a, g_s, g_v, p))
+    torch.cuda.synchronize()
+    assert len(K._bwd_scratch) >= 3  # the default stream's and the two streams'
+    for got in outs:
+        for g, r in zip(got, first):
+            assert torch.equal(g, r)
+    # and the tickets are back at zero on every stream
+    assert all(int(held[0].abs().sum()) == 0 for held in K._bwd_scratch.values())
+
+
+@pytest.mark.cuda
+def test_bwd_refused_launch_drops_the_scratch(cuda_device, monkeypatch):
+    """The entry point refuses a plan made for another ring depth than the
+    library was built with; the wrapper raises, drops the stream's scratch
+    (its tickets might have been left counted), and the next call is right."""
+    p = LIFParams()
+    x, a, b, v0 = (t.to(cuda_device) for t in _inputs(2, 2, 7, 9, 24, torch.bfloat16))
+    _, vpre, _ = K.affine_lif_fwd_res(x, a, b, p, v0)
+    g_s, g_v = _cotangents(x, v0)
+    first = K.affine_lif_bwd(vpre, x, a, g_s, g_v, p)
+    key = K._scratch_key(x.device)
+    assert key in K._bwd_scratch
+    before = dict(K.launch_counts)
+    with monkeypatch.context() as m:
+        m.setattr(K, "RING_DEPTH", K.RING_DEPTH + 1)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            K.affine_lif_bwd(vpre, x, a, g_s, g_v, p)
+    assert key not in K._bwd_scratch and K.launch_counts == before
+    again = K.affine_lif_bwd(vpre, x, a, g_s, g_v, p)
+    for g, r in zip(again, first):
+        assert torch.equal(g, r)
 
 
 @pytest.mark.cuda

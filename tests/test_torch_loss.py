@@ -73,7 +73,7 @@ def test_ciou_gradient_matches_jax():
 def test_bbox2dist_and_anchors_match_jax():
     rng = np.random.RandomState(2)
     pts_j, st_j = janc.make_anchors([(8, 10), (4, 5)], [8, 16])
-    pts_t, st_t = tanc.make_anchors([(8, 10), (4, 5)], [8, 16])
+    pts_t, st_t = tanc.make_anchors([(8, 10), (4, 5)], [8, 16], device="cpu")
     np.testing.assert_array_equal(pts_t.numpy(), np.asarray(pts_j))
     np.testing.assert_array_equal(st_t.numpy(), np.asarray(st_j))
     boxes = (rng.rand(3, 100, 4) * 30.0 - 5.0).astype(np.float32)

@@ -157,7 +157,7 @@ def test_box_ops_match_jax():
 def test_anchors_match_jax():
     shapes, strides = [(8, 10), (4, 5), (2, 3)], [8, 16, 32]
     p_j, s_j = janc.make_anchors(shapes, strides)
-    p_t, s_t = tanc.make_anchors(shapes, strides)
+    p_t, s_t = tanc.make_anchors(shapes, strides, device="cpu")
     np.testing.assert_array_equal(p_t.numpy(), np.asarray(p_j))
     np.testing.assert_array_equal(s_t.numpy(), np.asarray(s_j))
     dist = np.random.RandomState(3).uniform(0, 7, size=(2, p_t.shape[0], 4)).astype(np.float32)
