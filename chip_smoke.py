@@ -2,8 +2,9 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-1. Builds the hand-written kernels from their sources in the checkout
-   (one nvcc per source, started together).
+1. Builds the hand-written kernels and the host PNG row filters from
+   their sources in the checkout (one compiler process per source, nvcc
+   or the host C++ compiler, started together).
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes the main paths give it: the normalize+LIF inference forward
    (A1) at every (T, B) the paths launch it with (a served frame, a
@@ -53,6 +54,16 @@ Run from the repository root:  python3 chip_smoke.py
    from the profiler, the train step (host clock, profiler kernel
    time with the A2/A3 shares, peak memory), an evaluation batch split
    into model and NMS, and a frame of the token-LSTM model.
+10. Drives the data pipeline and the two command lines at the same full
+   width: a DSEC-shaped tree written by the port's generator (3 sequences
+   x 9 frames, 480x640), read_rgb against the plain row filters (every
+   frame, and one frame in each of the 5 filter types), main.train_code
+   for one epoch (B=2, 4 decode threads) and resumed for a second, then
+   eval_2.evaluate on best.pt; counts zeroed before and read after each
+   run: 20 A2 + 20 A3 a train step, 20 A1 a validation step and for the
+   spike-rate pass, 20 A1 an evaluation batch. Times the loader alone,
+   the CLI's host ms per train step beside phase 4's step, and its
+   device-busy share.
 
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}. Any failure raises (non-zero
@@ -63,6 +74,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -125,6 +137,8 @@ COMP_GRAD_RTOL = 1e-3
 N_EVAL_BATCHES = 3  # full-width evaluation batches (T=5, B=2)
 N_LSTM_FRAMES = 3  # frames per stream served by the token-LSTM model
 N_LSTM_TIMED = 20  # B=1 dispatches of the token-LSTM model timed
+DATA_SEQS, DATA_FRAMES = 3, 9  # the data phase's tree: 15 windows of 5 frames
+DATA_THREADS = 4  # decode threads of the data phase's loaders
 # Batched (B=2) against alone (B=1) in bf16: cuDNN may pick another
 # algorithm for another batch and round differently, so sorted scores are
 # compared to 1e-2, as the clip-vs-sequential check does.
@@ -384,7 +398,8 @@ def kernel_rows(prof):
 def run_training_slice(card, K, det, cfg, n_blocks, rng) -> dict:
     """The full-width training path through make_step_fns -> train_loop,
     with its assertions and timings. Returns the launch counts of the
-    train_loop run."""
+    train_loop run and the timed step's median host ms, calling thread's
+    CPU ms and profiler device ms."""
     from snn_object_detectionddp_tpu_torch.train.checkpoint import load_checkpoint
     from snn_object_detectionddp_tpu_torch.train.loop import train_loop
     from snn_object_detectionddp_tpu_torch.train.step import (
@@ -492,13 +507,14 @@ def run_training_slice(card, K, det, cfg, n_blocks, rng) -> dict:
         print(f"spike rates on the validation batch: min {min(vals):.4f}, max {max(vals):.4f}")
 
     # -- timings of a train step ---------------------------------------------
-    step_ms = []
+    step_ms, step_cpu = [], []
     for i in range(N_TIMED_STEPS):
         torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        t0, c0 = time.perf_counter(), time.thread_time()
         state, _ = fns.train_step(state, train_batches[i % N_TRAIN_STEPS])
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        step_cpu.append((time.thread_time() - c0) * 1e3)
     prof = torch.profiler.profile(
         activities=[torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     )
@@ -522,14 +538,15 @@ def run_training_slice(card, K, det, cfg, n_blocks, rng) -> dict:
     top = sorted(evs, key=lambda e: -e.self_device_time_total)[:8]
     print(f"[{card}] train step B={B_TRAIN} T={T_TRAIN} (host clock, synchronised, "
           f"{N_TIMED_STEPS} steps after the loop's {N_TRAIN_STEPS}): ms/step "
-          f"{spread(step_ms[1:])} (first {step_ms[0]:.3f}); profiler x{n}: device (kernel) "
+          f"{spread(step_ms[1:])} (first {step_ms[0]:.3f}), calling thread on the CPU "
+          f"{spread(step_cpu[1:])}; profiler x{n}: device (kernel) "
           f"time {dev_ms:.3f} ms/step, busy {dev_ms / med:.1%} of the median step; "
           f"affine_lif_fwd_res {a2:.4f} ms/step ({a2 / dev_ms:.2%}), affine_lif_bwd "
           f"{a3:.4f} ms/step ({a3 / dev_ms:.2%}) in {n_a3:.0f} launches/step, its sums "
           f"included; {sum(e.count for e in evs) / n:.0f} "
           f"kernels/step; peak memory through train_loop {peak_gb:.2f} GiB; top: "
           + "; ".join(f"{e.key[:48]} {e.self_device_time_total / 1e3 / n:.3f} ms" for e in top))
-    return launches
+    return launches, {"step_ms": med, "thread_ms": float(np.median(step_cpu[1:])), "dev_ms": dev_ms}
 
 
 def gradient_check(det_gpu, det_cpu, params, rng) -> None:
@@ -1056,6 +1073,308 @@ def run_lstm_serving(card, K, n_blocks, rng) -> None:
         svc.stop()
 
 
+def check_png(frames, scratch) -> str:
+    """read_rgb (compiled row filters) against unfilter_reference (numpy)
+    on the written frames and on one frame re-encoded with each of the five
+    filter types: every pixel equal."""
+    import zlib
+
+    from snn_object_detectionddp_tpu_torch.data import png
+
+    inflate_ms = []
+
+    def reference(path):
+        data = open(path, "rb").read()
+        idat = b"".join(bytes(v) for t, v in png._chunks(data, str(path)) if t == b"IDAT")
+        h, w = png.png_shape(path)
+        t0 = time.perf_counter()
+        raw = zlib.decompress(idat)
+        inflate_ms.append((time.perf_counter() - t0) * 1e3)
+        return png.unfilter_reference(raw, h, w * 3, 3).reshape(h, w, 3)
+
+    decode_ms = []
+    for path in frames:
+        t0 = time.perf_counter()
+        got = png.read_rgb(path)
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+        if not np.array_equal(got, reference(path)):
+            raise AssertionError(f"read_rgb differs from unfilter_reference on {path}")
+    img = png.read_rgb(frames[0])
+    for ft in range(5):
+        path = os.path.join(scratch, f"filter{ft}.png")
+        png.write_rgb(path, img, ft)
+        got = png.read_rgb(path)
+        if not (np.array_equal(got, img) and np.array_equal(reference(path), img)):
+            raise AssertionError(f"filter type {ft}: read_rgb or unfilter_reference differs")
+    return (f"{len(frames)} written frames and one re-encoded with each of the 5 filter types "
+            f"bit-equal to unfilter_reference; read_rgb of one {img.shape[0]}x{img.shape[1]} frame "
+            f"on one thread ms {spread(decode_ms)}, of which zlib's inflate alone "
+            f"{spread(inflate_ms[: len(frames)])}")
+
+
+def loader_contention(det, state, batches, loader) -> str:
+    """Synchronised train steps of ``det`` (library-driven, as phase 4
+    times them) with the host otherwise idle and with ``loader`` decoding
+    epoch after epoch in the background, in turns quiet, busy, busy, quiet:
+    whether the loader's threads slow the dispatching thread."""
+    from snn_object_detectionddp_tpu_torch.train.step import make_optimizer, make_step_fns
+
+    fns = make_step_fns(det, *make_optimizer(1e-4, 100))
+    stop = threading.Event()
+
+    def churn():
+        while not stop.is_set():
+            for _ in loader:
+                if stop.is_set():
+                    break
+
+    def steps():
+        wall, cpu = [], []
+        for i in range(N_TIMED_STEPS):
+            torch.cuda.synchronize()
+            t0, c0 = time.perf_counter(), time.thread_time()
+            fns.train_step(state, batches[i % len(batches)])
+            torch.cuda.synchronize()
+            wall.append((time.perf_counter() - t0) * 1e3)
+            cpu.append((time.thread_time() - c0) * 1e3)
+        return f"({np.median(wall):.3f}, {np.median(cpu):.3f})"
+
+    out = []
+    for kind in ("alone", "loader", "loader", "alone"):
+        if kind == "alone":
+            out.append(f"alone {steps()}")
+            continue
+        stop.clear()
+        thread = threading.Thread(target=churn, daemon=True)
+        thread.start()
+        try:
+            time.sleep(0.5)  # the loader's pool is busy before the first step
+            out.append(f"loader {steps()}")
+        finally:
+            stop.set()
+            thread.join(timeout=60)
+        if thread.is_alive():
+            raise AssertionError("the background loader did not stop")
+    return ", ".join(out)
+
+
+def run_data_cli_phase(card, K, n_blocks, library_step) -> dict:
+    """The data pipeline and the two command lines at full width: a
+    DSEC-shaped tree written by the port's generator (3 sequences x 9
+    frames at 480x640, seq_len 5: 15 windows, 2 sequences / 10 windows /
+    5 steps of B=2 for training, 1 sequence / 5 windows / a partial third
+    batch for validation), read_rgb against the plain row filters,
+    main.train_code for one epoch and resumed for a second, eval_2.evaluate
+    on best.pt, each with its launch counts; the loader alone, the CLI's
+    host ms per train step beside the library-driven step of phase 4 and
+    its device-busy share. Returns the launches of the three runs."""
+    import contextlib
+    import io
+
+    from snn_object_detectionddp_tpu_torch import eval_2
+    from snn_object_detectionddp_tpu_torch import main as cli
+    from snn_object_detectionddp_tpu_torch.config import Config
+    from snn_object_detectionddp_tpu_torch.data.dsec import DSECIndex, train_val_split
+    from snn_object_detectionddp_tpu_torch.data.pipeline import BatchLoader
+    from snn_object_detectionddp_tpu_torch.data.synthetic import make_dataset
+    from snn_object_detectionddp_tpu_torch.evals import validator
+    from snn_object_detectionddp_tpu_torch.models.detector import Detector
+
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    try:
+        cfg = Config()  # yolo11m, 480x640, s2d4, ConvLSTM, bf16
+        h, w = cfg.model.image_size
+        t0 = time.perf_counter()
+        root = make_dataset(os.path.join(scratch, "dsec"), num_sequences=DATA_SEQS,
+                            splits=("train",), num_frames=DATA_FRAMES, height=h, width=w)
+        write_s = time.perf_counter() - t0
+        frames = sorted(str(p) for p in root.rglob("*.png"))
+        print(f"data phase: wrote {len(frames)} {h}x{w} frames with data/synthetic.py in "
+              f"{write_s:.2f} s; " + check_png(frames, scratch))
+
+        for split in ("train", "val", "test"):
+            cfg.dataset.split(split).path = str(root / "train")
+        tr = cfg.training
+        tr.batch_size, tr.num_workers, tr.epochs = B_TRAIN, DATA_THREADS, 1
+        tr.save_dir = os.path.join(scratch, "run")
+        tr.weights_path = os.path.join(tr.save_dir, "latest.pt")
+        with contextlib.redirect_stdout(io.StringIO()):
+            index = DSECIndex(cfg, "train")
+            train_idx, val_idx = train_val_split(index, seed=tr.seed)
+        n_train = len(train_idx) // B_TRAIN
+        n_val = -(-len(val_idx) // B_TRAIN)
+        if (len(index), len(train_idx), len(val_idx)) != (15, 10, 5):
+            raise AssertionError(f"index/split {len(index)}/{len(train_idx)}/{len(val_idx)}, want 15/10/5")
+
+        # The loader alone: two epochs of the shuffled train loader, with 1
+        # and with DATA_THREADS decode threads.
+        def make_loader(threads):
+            return BatchLoader(index, train_idx, batch_size=B_TRAIN, max_boxes=cfg.model.max_boxes,
+                               shuffle=True, seed=tr.seed, num_threads=threads, drop_last=True)
+
+        loader_ms = {}
+        for threads in (1, DATA_THREADS):
+            t0, batches = time.perf_counter(), []
+            for _ in range(2):
+                batches += list(make_loader(threads))
+            loader_ms[threads] = (time.perf_counter() - t0) * 1e3 / len(batches)
+        if batches[0]["images"].shape != (B_TRAIN, T_TRAIN, h, w, 3):
+            raise AssertionError(f"loader batch {batches[0]['images'].shape}")
+
+        # Wrap the step functions train_code makes: per-step launch counts,
+        # the host clock and the calling thread's CPU at each step's start,
+        # and (when asked) a profiler window over the epoch's train steps.
+        make_step_fns = cli.make_step_fns
+        record = {}
+
+        def instrumented(*args, **kwargs):
+            fns = make_step_fns(*args, **kwargs)
+
+            def counted(kind, fn):
+                def step(*a):
+                    prof = record.get("prof")
+                    if kind == "train" and prof is not None and "t0" not in record:
+                        prof.start()
+                        record["t0"] = time.perf_counter()
+                    if kind == "eval" and prof is not None and "t1" not in record:
+                        torch.cuda.synchronize()
+                        record["t1"] = time.perf_counter()
+                        prof.stop()
+                    record["starts"].setdefault(kind, []).append(
+                        (time.perf_counter(), time.thread_time()))
+                    c0 = dict(K.launch_counts)
+                    out = fn(*a)
+                    record["steps"].setdefault(kind, []).append(
+                        {k: K.launch_counts[k] - c0[k] for k in c0})
+                    return out
+                return step
+
+            return fns._replace(train_step=counted("train", fns.train_step),
+                                eval_step=counted("eval", fns.eval_step))
+
+        def run_cli(profile: bool):
+            record.clear()
+            record.update(steps={}, starts={})
+            if profile:
+                record["prof"] = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
+            det = Detector.from_config(cfg, device="cuda")
+            out = io.StringIO()
+            cli.make_step_fns = instrumented
+            try:
+                K.reset_launch_counts()
+                with contextlib.redirect_stdout(out):
+                    state = cli.train_code(cfg, det)
+                torch.cuda.synchronize()
+                launches = dict(K.launch_counts)
+            finally:
+                cli.make_step_fns = make_step_fns
+            return state, launches, out.getvalue(), det
+
+        want_train = {"affine_lif_fwd": 0, "affine_lif_fwd_res": n_blocks, "affine_lif_bwd": n_blocks}
+        want_eval = {"affine_lif_fwd": n_blocks, "affine_lif_fwd_res": 0, "affine_lif_bwd": 0}
+        # One epoch: 20 A2 + 20 A3 a train step, 20 A1 a validation step,
+        # and 20 A1 for the spike-rate pass train_loop makes over the first
+        # validation batch.
+        want_epoch = {"affine_lif_fwd": n_blocks * (n_val + 1),
+                      "affine_lif_fwd_res": n_blocks * n_train, "affine_lif_bwd": n_blocks * n_train}
+        total = dict.fromkeys(want_epoch, 0)
+
+        def check_epoch(tag, launches, log):
+            steps = record["steps"]
+            if (len(steps.get("train", [])) != n_train or any(c != want_train for c in steps["train"])
+                    or len(steps.get("eval", [])) != n_val or any(c != want_eval for c in steps["eval"])
+                    or launches != want_epoch):
+                raise AssertionError(f"{tag}: launches {launches} (want {want_epoch}); per step "
+                                     f"{steps}")
+            for k in total:
+                total[k] += launches[k]
+            for name in ("latest.pt", "best.pt"):
+                if not os.path.exists(os.path.join(tr.save_dir, name)):
+                    raise AssertionError(f"{tag}: train_code wrote no {name}")
+            print(f"{tag}: " + " | ".join(l for l in log.splitlines()
+                                          if l.startswith(("---", "Total", "Resum", "Average"))))
+
+        state, launches, log, _ = run_cli(profile=False)
+        check_epoch("main.train_code epoch 1", launches, log)
+        if state["step"] != n_train or "--- Epoch 1/1 ---" not in log:
+            raise AssertionError(f"train_code took {state['step']} steps, want {n_train}")
+        starts = record["starts"]["train"]
+        cli_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(starts, starts[1:])]
+        cli_cpu = [(b[1] - a[1]) * 1e3 for a, b in zip(starts, starts[1:])]
+
+        tr.resume_training, tr.epochs = True, 2
+        state, launches, log, det = run_cli(profile=True)
+        check_epoch("main.train_code resumed", launches, log)
+        ckpt = torch.load(tr.weights_path, map_location="cpu", weights_only=True)
+        if ("--- Epoch 2/2 ---" not in log or "--- Epoch 1/2 ---" in log
+                or state["step"] != 2 * n_train or ckpt["epoch"] != 1
+                or ckpt["state"]["step"] != 2 * n_train):
+            raise AssertionError(f"resume did not start at epoch 2 and carry the step counter on "
+                                 f"(step {state['step']}, checkpoint epoch {ckpt['epoch']})")
+        del ckpt
+        contention = loader_contention(det, state, batches, make_loader(DATA_THREADS))
+        del state, det
+        prof, window_ms = record["prof"], (record["t1"] - record["t0"]) * 1e3
+        evs = kernel_rows(prof)
+        dev_ms = sum(e.self_device_time_total for e in evs) / 1e3
+        if dev_ms <= 0:
+            raise AssertionError("the profiler recorded no device time over the CLI's train steps")
+        n_a3 = sum(e.count for e in evs if "affine_lif_bwd_kernel" in e.key)
+        if n_a3 != n_blocks * n_train:
+            raise AssertionError(f"profiler: {n_a3} affine_lif_bwd_kernel rows over {n_train} steps")
+
+        # eval_2 on best.pt: the partial batch's padded row must not reach
+        # the metrics (one update per real window).
+        updates = [0]
+        metrics_cls = validator.DetMetrics
+
+        class CountingMetrics(metrics_cls):
+            def update(self, **kw):
+                updates[0] += 1
+                return super().update(**kw)
+
+        out = io.StringIO()
+        validator.DetMetrics = CountingMetrics
+        try:
+            K.reset_launch_counts()
+            with contextlib.redirect_stdout(out):
+                results = eval_2.evaluate(cfg)
+            torch.cuda.synchronize()
+            eval_launches = dict(K.launch_counts)
+        finally:
+            validator.DetMetrics = metrics_cls
+        keys = {"metrics/precision(B)", "metrics/recall(B)", "metrics/mAP50(B)",
+                "metrics/mAP50-95(B)", "fitness"}
+        if set(results) != keys or not all(np.isfinite(v) for v in results.values()):
+            raise AssertionError(f"eval_2 results {results}")
+        want = {"affine_lif_fwd": n_blocks * n_val, "affine_lif_fwd_res": 0, "affine_lif_bwd": 0}
+        if eval_launches != want or updates[0] != len(val_idx) or "Loaded checkpoint" not in out.getvalue():
+            raise AssertionError(f"eval_2: launches {eval_launches} (want {want}), {updates[0]} "
+                                 f"metric updates for {len(val_idx)} windows in {n_val} batches")
+        for k in total:
+            total[k] += eval_launches[k]
+        print(f"eval_2.evaluate on best.pt ok: {n_val} batches of {B_TRAIN} for {len(val_idx)} "
+              f"windows, {updates[0]} metric updates (the padded row never reached them), "
+              f"launches {eval_launches}; results (2 epochs on 5 steps) {results}")
+
+        print(f"[{card}] data + command line (host clock): BatchLoader alone (B={B_TRAIN} "
+              f"T={T_TRAIN} {h}x{w}, shuffled, {len(batches)} batches) {loader_ms[DATA_THREADS]:.3f} "
+              f"ms/batch with {DATA_THREADS} threads, {loader_ms[1]:.3f} with 1; "
+              f"main.train_code epoch 1: {spread(cli_ms)} ms between train-step starts, calling "
+              f"thread on the CPU {spread(cli_cpu)} ms, beside phase 4's library-driven step "
+              f"{library_step['step_ms']:.3f} ms (thread on the CPU {library_step['thread_ms']:.3f} "
+              f"ms); resumed epoch under the profiler: {window_ms / n_train:.3f} ms per train "
+              f"step over the window, device (kernel) time {dev_ms / n_train:.3f} ms/step "
+              f"(phase 4: {library_step['dev_ms']:.3f}), busy {dev_ms / n_train / float(np.median(cli_ms)):.1%} "
+              f"of the unprofiled median CLI step, {dev_ms / window_ms:.1%} of the profiled window; "
+              f"the same train step synchronised, alone and with a {DATA_THREADS}-thread BatchLoader "
+              f"decoding beside it, in turns (ms, thread on the CPU ms): {contention}")
+        return total
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA card (torch.cuda.is_available() is False)")
@@ -1076,11 +1395,13 @@ def main() -> None:
     dev_name = torch.cuda.get_device_name(0)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}; card: {card}")
 
-    # -- build the kernels from their sources, one nvcc each ----------------
+    # -- build the kernels and the PNG row filters from their sources, one
+    # compiler process each, all started together ---------------------------
     t0 = time.perf_counter()
-    kernel_build.build_all()
-    print(f"built {', '.join(K.KERNELS + KL.KERNELS)} from {', '.join(kernel_build.SOURCES)} "
-          f"in {time.perf_counter() - t0:.1f} s")
+    each = kernel_build.build_all()
+    print(f"built {', '.join(K.KERNELS + KL.KERNELS)} and snn_png_unfilter in "
+          f"{time.perf_counter() - t0:.1f} s ("
+          + ", ".join(f"{src} {sec:.1f} s" for src, sec in each.items()) + ")")
 
     # -- the main path's model, and the LIF shapes it runs -----------------
     cfg = Config()  # yolo11m, 480x640, s2d4, ConvLSTM, bf16
@@ -1338,9 +1659,15 @@ def main() -> None:
     torch.cuda.empty_cache()
 
     # -- phase 4: the full-width training slice ----------------------------
-    launches.update({k: v for k, v in run_training_slice(card, K, det, cfg, n_blocks, rng).items()
-                     if k != "affine_lif_fwd"})
+    train_launches, library_step = run_training_slice(card, K, det, cfg, n_blocks, rng)
+    launches.update({k: v for k, v in train_launches.items() if k != "affine_lif_fwd"})
     train_ms = time_training_kernels(card, K, lif_mod, lif_shapes, gen)
+
+    # -- phase 5: the data pipeline and the two command lines ---------------
+    del det
+    torch.cuda.empty_cache()
+    for k, v in run_data_cli_phase(card, K, n_blocks, library_step).items():
+        launches[k] += v
 
     scan_ms = time_scan_kernels(card, KL, lif_mod, lif_shapes, gen)
 

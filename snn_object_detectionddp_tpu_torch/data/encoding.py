@@ -5,6 +5,9 @@
   fp32 and rounded once to the compute dtype.
 - ``encode_direct``: repeat a frame at every timestep (constant-current
   encoding).
+- ``encode_rate``: Bernoulli spikes with p = pixel intensity per timestep,
+  drawn from an explicit ``torch.Generator`` (other bits than
+  ``jax.random`` gives for the same seed; the same distribution).
 """
 
 from __future__ import annotations
@@ -42,3 +45,19 @@ def encode_direct(
     repeated T times."""
     x = preprocess_video(image_u8[:, None], out_hw, dtype)  # (1, B, H', W', 3)
     return x.repeat(timesteps, 1, 1, 1, 1)
+
+
+def encode_rate(
+    image_u8: torch.Tensor,
+    generator: torch.Generator,
+    timesteps: int,
+    out_hw: tuple[int, int] | None = None,
+    dtype: torch.dtype = torch.float32,
+) -> torch.Tensor:
+    """(B, H, W, 3) uint8 -> (T, B, H', W', 3) Bernoulli spike trains in
+    ``dtype``. ``generator`` must live on the image's device. Spikes are
+    exactly 0/1, so the cast is lossless; the threshold compare is fp32."""
+    x = preprocess_video(image_u8[:, None], out_hw, torch.float32)[0]
+    u = torch.rand((timesteps, *x.shape), generator=generator, device=x.device,
+                   dtype=torch.float32)
+    return (u < x[None]).to(dtype)

@@ -7,9 +7,9 @@ caller built the detector for the CPU); only the metric accumulation is
 host numpy, overlapped with the next batch's device work by a
 one-batch-delayed fetch.
 
-:func:`evaluate_batches` takes the batches from the caller. Reading the
-validation split of a DSEC directory (:func:`evaluate_model`) needs the
-dataset index and batch loader, which are not part of this package yet.
+:func:`evaluate_batches` takes the batches from the caller;
+:func:`evaluate_model` reads the seeded validation split of the DSEC
+directory a config names through the data pipeline (``data/``).
 """
 
 from __future__ import annotations
@@ -19,9 +19,12 @@ from typing import Iterable
 import numpy as np
 import torch
 
+from ..data.dsec import DSECIndex, train_val_split
 from ..data.encoding import preprocess_video
+from ..data.pipeline import BatchLoader
 from ..models.detect import decode_predictions
 from ..ops.nms import batched_nms
+from ..train.loop import _progress
 from ..utils.pipelining import DelayedFetch
 from .map import DetMetrics
 
@@ -111,12 +114,23 @@ def evaluate_batches(detector, params, batches: Iterable[dict], predict=None,
 
 
 def evaluate_model(cfg, detector, params, batch_size: int | None = None, mesh=None) -> dict:
-    """Evaluation over the seeded validation split of the DSEC directory
-    that ``cfg`` names. Not available yet: it needs the dataset index and
-    the batch loader of the data pipeline. Use :func:`evaluate_batches`
-    with batches of your own."""
-    raise NotImplementedError(
-        "evaluate_model reads a DSEC directory through the data pipeline "
-        "(dataset index, train/val split, batch loader), which is not ported "
-        "yet; pass batches to evaluate_batches instead"
+    """Evaluate over the seeded validation split of the DSEC directory that
+    ``cfg.dataset.train`` names (the JAX package's ``evaluate_model``): the
+    same sequence split as training, a loader without shuffling whose
+    padded last-batch rows never reach the metrics, and the results dict,
+    printed and returned. ``params`` must be on the detector's device."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh-sharded evaluation is not ported yet; evaluate on one device (mesh=None)"
+        )
+    index = DSECIndex(cfg, "train")
+    _, val_idx = train_val_split(index, seed=cfg.training.seed)
+    loader = BatchLoader(
+        index, val_idx, batch_size=batch_size or cfg.training.batch_size,
+        max_boxes=cfg.model.max_boxes, shuffle=False, num_threads=cfg.training.num_workers,
     )
+    results = evaluate_batches(detector, params, _progress(loader, "Evaluating", len(loader)))
+    print("\n--- Evaluation Results ---")
+    for k, v in results.items():
+        print(f"{k}: {v:.5f}")
+    return results

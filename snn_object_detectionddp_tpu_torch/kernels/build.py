@@ -1,11 +1,14 @@
-"""Build and load the hand-written CUDA sources under ``csrc/``.
+"""Build and load the hand-written sources under ``csrc/``.
 
-Each source becomes one shared library with a plain C interface, compiled
-by ``nvcc`` for ``sm_90a`` into ``build/kernels/`` at first use (a few
-seconds) and loaded with ``ctypes``. The library's name carries a hash of
-the source, of the headers it includes from ``csrc/`` and of the flags, so
-an edited source is rebuilt and a stale library is never loaded. Nothing
-is fetched or prebuilt: the repository's sources are the only input.
+Each source becomes one shared library with a plain C interface, built
+into ``build/kernels/`` at first use (a few seconds) and loaded with
+``ctypes``: a CUDA source (``.cu``) by ``nvcc`` for ``sm_90a``, a host C++
+source (``.cpp``, the PNG row filters of ``data/png.py``) by the host C++
+compiler (``$CXX``, else ``g++``). The library's name carries a hash of
+the source, of the headers it includes from ``csrc/`` and of the compiler
+flags, so an edited source is rebuilt and a stale library is never loaded.
+Nothing is fetched or prebuilt: the repository's sources are the only
+input.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
@@ -27,9 +31,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-# Headers under csrc/ that the sources include: part of every library's hash.
+CXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
+# Headers under csrc/ that the CUDA sources include: part of their hash.
 HEADERS = ("lif_common.cuh",)
-SOURCES = ("affine_lif.cu", "lif_scan.cu")
+SOURCES = ("affine_lif.cu", "lif_scan.cu", "png_unfilter.cpp")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -48,33 +53,52 @@ def nvcc() -> str:
     raise RuntimeError("nvcc not found (set CUDA_HOME): the LIF kernels cannot be built")
 
 
+def cxx() -> str:
+    found = shutil.which(os.environ.get("CXX") or "g++")
+    if found is None:
+        raise RuntimeError("no host C++ compiler found (set CXX): the PNG row filters cannot be built")
+    return found
+
+
 def build(source: str) -> Path:
     """Compile ``csrc/<source>`` if this version of it has not been built
     yet; returns the library's path."""
     src = CSRC / source
+    if src.suffix == ".cu":
+        compiler, flags, headers = nvcc(), NVCC_FLAGS, HEADERS
+    else:
+        compiler, flags, headers = cxx(), CXX_FLAGS, ()
     digest = hashlib.sha256(
-        src.read_bytes() + b"".join((CSRC / h).read_bytes() for h in HEADERS)
-        + " ".join(NVCC_FLAGS).encode()
+        src.read_bytes() + b"".join((CSRC / h).read_bytes() for h in headers)
+        + " ".join(flags).encode()
     ).hexdigest()[:16]
     out = BUILD_DIR / f"lib{src.stem}_{digest}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    cmd = [compiler, *flags, "-o", str(tmp), str(src)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
+            f"{Path(compiler).name} failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}"
         )
     os.replace(tmp, out)  # atomic: concurrent builds race harmlessly
     return out
 
 
-def build_all() -> list[Path]:
-    """Compile every kernel source, one ``nvcc`` each, all started together."""
+def build_all() -> dict[str, float]:
+    """Compile every source, one compiler process each, all started
+    together; returns the seconds each source took (about 0 when this
+    version of it was built before)."""
+
+    def timed(source):
+        t0 = time.perf_counter()
+        build(source)
+        return source, time.perf_counter() - t0
+
     with ThreadPoolExecutor(len(SOURCES)) as pool:
-        return list(pool.map(build, SOURCES))
+        return dict(pool.map(timed, SOURCES))
 
 
 def load(source: str, declare) -> ctypes.CDLL:

@@ -1,0 +1,146 @@
+"""Config-driven train / test dispatch from the command line.
+
+    python -m snn_object_detectionddp_tpu_torch.main --config config.yaml
+
+The port's counterpart of the JAX package's ``main.py``, on one card:
+``mode: train`` builds the DSEC index, the seeded sequence split (and the
+debug subset), a shuffled train loader that drops a trailing partial batch
+and a padded validation loader, and trains through ``train/loop.py`` with
+checkpoints under ``training.save_dir`` (``resume_training`` continues
+from ``training.weights_path``). ``mode: test`` and ``mode: eval`` run the
+mAP evaluation of :mod:`.eval_2`. ``--config`` needs PyYAML.
+
+Not ported, each raising with the ROADMAP item that ports it: data,
+spatial or tensor parallelism and FSDP (``mesh.*``), NaN debugging
+(``runtime.debug_nans``) and ``mode: visualize``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import sys
+from pathlib import Path
+
+import torch
+
+from .data.dsec import DSECIndex, apply_train_debug, train_val_split
+from .data.pipeline import BatchLoader
+from .train.checkpoint import load_backbone_params, resume_or_init
+from .train.loop import train_loop
+from .train.param_groups import make_grouped_optimizer
+from .train.step import init_state, make_optimizer, make_step_fns, module_frozen_mask
+
+
+def _check_ported(cfg) -> None:
+    m = cfg.mesh
+    if m.tensor > 1:
+        raise NotImplementedError(
+            "mesh.tensor > 1 (tensor parallelism) is not ported: ROADMAP §1 item 2, parallelism"
+        )
+    if m.data > 1 or m.spatial > 1 or m.fsdp:
+        raise NotImplementedError(
+            "mesh.data > 1, mesh.spatial > 1 and mesh.fsdp (multi-device training) are not "
+            "ported: ROADMAP §1 item 2, parallelism; this package trains on one card"
+        )
+    if cfg.runtime.debug_nans:
+        raise NotImplementedError(
+            "runtime.debug_nans is not ported: ROADMAP §1 item 3, side pipelines (utils/debug.py)"
+        )
+
+
+def train_code(cfg, detector) -> dict:
+    """Train ``detector`` on the DSEC directory that ``cfg`` names; returns
+    the final train state."""
+    _check_ported(cfg)
+    save_dir = Path(cfg.training.save_dir)
+    save_dir.mkdir(parents=True, exist_ok=True)
+
+    index = DSECIndex(cfg, "train")
+    train_idx, val_idx = train_val_split(index, seed=cfg.training.seed)
+    train_idx, val_idx = apply_train_debug(train_idx, val_idx, cfg.debug_train)
+
+    tr = cfg.training
+    loader_kw = dict(batch_size=tr.batch_size, max_boxes=cfg.model.max_boxes,
+                     num_threads=tr.num_workers, prefetch=cfg.runtime.prefetch)
+    train_loader = BatchLoader(index, train_idx, shuffle=True, seed=tr.seed, drop_last=True,
+                               **loader_kw)
+    val_loader = BatchLoader(index, val_idx, shuffle=False, **loader_kw)
+    print(f"Total samples: {len(index)}. Train: {len(train_idx)}. Val: {len(val_idx)}.")
+
+    total_steps = len(train_loader) * tr.epochs
+    opt_kw = dict(weight_decay=tr.weight_decay, grad_clip_norm=tr.grad_clip_norm,
+                  pct_start=tr.pct_start)
+    # The skeleton's parameters (meta tensors): names and shapes for the
+    # optimizer groups and the checkpoint template, no memory.
+    meta_params = dict(detector.module.named_parameters())
+    if cfg.model.freeze_backbone:
+        if tr.param_groups:
+            raise ValueError(
+                "model.freeze_backbone cannot combine with training.param_groups "
+                "(pick one optimizer structure)"
+            )
+        tx, schedule = make_optimizer(tr.learning_rate, total_steps,
+                                      frozen_mask=module_frozen_mask("backbone"), **opt_kw)
+        print("Backbone frozen: zero updates + no weight decay on backbone.")
+    elif tr.param_groups:
+        tx, schedule = make_grouped_optimizer(meta_params, tr.learning_rate, total_steps, **opt_kw)
+    else:
+        tx, schedule = make_optimizer(tr.learning_rate, total_steps, **opt_kw)
+    fns = make_step_fns(
+        detector, tx, schedule, remat=tr.remat, remat_chunk=tr.remat_chunk or None,
+        grad_accum=tr.grad_accum_steps or 1, remat_policy=tr.remat_policy,
+    )
+
+    def fresh_init():
+        params = detector.init_params(torch.Generator().manual_seed(tr.seed))
+        if cfg.model.backbone_init:
+            # Fresh starts only: a resumed checkpoint already carries its
+            # trained backbone.
+            params = load_backbone_params(cfg.model.backbone_init, params)
+        return init_state(params, tx, schedule)
+
+    state, start_epoch, best = resume_or_init(
+        cfg, init_state(meta_params, tx, schedule), init_fn=fresh_init, device=detector.device
+    )
+    if any(t.is_meta for t in state["opt_state"]["mu"].values()):
+        # The checkpoint's optimizer state did not fit this optimizer: it
+        # restored the parameters only, so the moments start fresh.
+        state["opt_state"] = tx.init(state["params"])
+    return train_loop(state, fns, schedule, train_loader, val_loader, cfg, save_dir,
+                      start_epoch=start_epoch, best_val_loss=best, detector=detector)
+
+
+def visualize_code(cfg, detector) -> None:
+    raise NotImplementedError(
+        "mode 'visualize' is not ported (viz/overlay.py): ROADMAP §1 item 3, side pipelines"
+    )
+
+
+def run(cfg, detector):
+    """Dispatch on ``cfg.mode`` with the caller's detector."""
+    if cfg.mode == "train":
+        return train_code(cfg, detector)
+    if cfg.mode == "visualize":
+        return visualize_code(cfg, detector)
+    if cfg.mode in ("test", "eval"):
+        from .eval_2 import evaluate
+
+        return evaluate(cfg, device=detector.device)
+    raise ValueError(f"unknown mode '{cfg.mode}' (train | visualize | test | eval)")
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--config", default="config.yaml")
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        sys.exit("main needs a CUDA card (torch.cuda.is_available() is False)")
+    from .config import load_config
+    from .models.detector import Detector
+
+    cfg = load_config(args.config)
+    return run(cfg, Detector.from_config(cfg))
+
+
+if __name__ == "__main__":
+    main()

@@ -259,8 +259,10 @@ def test_entry_points_and_unported_paths():
         tval.make_predict_fn(det, mesh=object())
     with pytest.raises(NotImplementedError, match="mesh"):
         tval.evaluate_batches(det, {}, [], mesh=object())
-    with pytest.raises(NotImplementedError, match="data pipeline"):
-        tval.evaluate_model(cfg, det, {})
+    # evaluate_model reads a DSEC directory (tests/test_torch_cli.py); only
+    # its mesh argument is refused.
+    with pytest.raises(NotImplementedError, match="mesh"):
+        tval.evaluate_model(cfg, det, {}, mesh=object())
     assert (tval.EVAL_CONF, tval.EVAL_IOU, tval.EVAL_MAX_DET, tval.EVAL_PRE_NMS_TOPK) == (
         jval.EVAL_CONF, jval.EVAL_IOU, jval.EVAL_MAX_DET, jval.EVAL_PRE_NMS_TOPK)
     # no batches: the empty results dict, as DetMetrics gives it

@@ -11,7 +11,7 @@ import pytest
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "snn_object_detectionddp_tpu_torch"
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "snn_object_detectionddp_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sklearn", "snn_object_detectionddp_tpu")
 SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
 
 
@@ -32,9 +32,11 @@ def test_port_sources_found():
     assert "snn_object_detectionddp_tpu_torch/train/step.py" in names
     assert "snn_object_detectionddp_tpu_torch/losses/detection.py" in names
     for new in ("kernels/lif.py", "kernels/build.py", "models/token_lstm.py", "evals/map.py",
-                "evals/validator.py", "evals/__init__.py"):
+                "evals/validator.py", "evals/__init__.py", "data/dsec.py", "data/png.py",
+                "data/native.py", "data/pipeline.py", "data/synthetic.py", "data/classes.py",
+                "main.py", "eval_2.py"):
         assert f"snn_object_detectionddp_tpu_torch/{new}" in names
-    assert len(names) >= 34
+    assert len(names) >= 42
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.relative_to(REPO).as_posix())
@@ -58,6 +60,18 @@ def test_optional_packages_are_imported_lazily(path):
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
             top.add(node.module.split(".")[0])
     assert not top & set(OPTIONAL), f"{path.name} imports {sorted(top & set(OPTIONAL))} at import"
+
+
+# The data pipeline and the command lines run on the card machine, which
+# has no OpenCV, scikit-learn or tqdm: they may not import them at all.
+DATA_PATH = sorted((PORT / "data").glob("*.py")) + [
+    PORT / "main.py", PORT / "eval_2.py", PORT / "evals" / "validator.py", REPO / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", DATA_PATH, ids=lambda p: p.relative_to(REPO).as_posix())
+def test_data_path_imports_no_opencv_sklearn_or_tqdm(path):
+    bad = _imported_roots(path) & {"cv2", "sklearn", "tqdm"}
+    assert not bad, f"{path.name} imports {sorted(bad)}"
 
 
 def test_training_entry_points_default_to_cuda():
@@ -104,6 +118,9 @@ def test_entry_points_default_to_cuda():
     assert inspect.signature(make_anchors).parameters["device"].default == "cuda"
     assert inspect.signature(serve.serve).parameters["device"].default == "cuda"
     assert inspect.signature(params_from_jax).parameters["device"].default == "cuda"
+    from snn_object_detectionddp_tpu_torch import eval_2
+
+    assert inspect.signature(eval_2.evaluate).parameters["device"].default == "cuda"
 
 
 def test_run_lif_takes_the_card_for_a_cuda_tensor_and_never_the_plain_version():
@@ -160,7 +177,7 @@ def test_evaluation_runs_on_the_detectors_device():
 def test_kernel_sources_are_in_the_package():
     from snn_object_detectionddp_tpu_torch.kernels import build
 
-    assert set(build.SOURCES) == {"affine_lif.cu", "lif_scan.cu"}
+    assert set(build.SOURCES) == {"affine_lif.cu", "lif_scan.cu", "png_unfilter.cpp"}
     for name in (*build.SOURCES, *build.HEADERS):
         assert (build.CSRC / name).is_file(), name
     text = (build.CSRC / "lif_scan.cu").read_text()

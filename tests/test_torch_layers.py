@@ -187,3 +187,27 @@ def test_preprocess_resize(out_hw):
     got = tenc.preprocess_video(torch.from_numpy(imgs), out_hw, dtype=torch.float32)
     assert got.shape == (2, 2, *out_hw, 3)
     np.testing.assert_allclose(_np(got), _np(ref), atol=1e-6)
+
+
+@pytest.mark.parametrize("level", [0, 64, 191, 255])
+def test_encode_rate_statistics(level):
+    """Bernoulli spikes with p = intensity. The port draws from a
+    torch.Generator and JAX from jax.random, so the bits differ: both are
+    held to the same statistics. Over 64 x 32 x 32 x 3 = 196,608 draws the
+    standard error of the rate is at most 1.2e-3; the limit 0.01 is 8 of
+    them, as tests/test_encoding.py allows 0.02 over 3x fewer draws."""
+    imgs = np.full((1, 32, 32, 3), level, np.uint8)
+    p = level / 255
+    got = tenc.encode_rate(torch.from_numpy(imgs), torch.Generator().manual_seed(0), 64)
+    ref = np.asarray(jenc.encode_rate(jnp.asarray(imgs), jax.random.PRNGKey(0), timesteps=64))
+    assert got.shape == ref.shape == (64, 1, 32, 32, 3) and got.dtype == torch.float32
+    assert set(np.unique(_np(got))) <= {0.0, 1.0}
+    assert abs(float(got.mean()) - p) < 0.01 and abs(float(ref.mean()) - p) < 0.01
+    # Independent draws per timestep and the same seed giving the same bits.
+    again = tenc.encode_rate(torch.from_numpy(imgs), torch.Generator().manual_seed(0), 64)
+    assert torch.equal(got, again)
+    if 0 < level < 255:
+        assert not torch.equal(got[0], got[1])
+    bf = tenc.encode_rate(torch.from_numpy(imgs), torch.Generator().manual_seed(0), 64,
+                          out_hw=(16, 16), dtype=torch.bfloat16)
+    assert bf.shape == (64, 1, 16, 16, 3) and bf.dtype == torch.bfloat16
