@@ -64,6 +64,18 @@ Run from the repository root:  python3 chip_smoke.py
    spike-rate pass, 20 A1 an evaluation batch. Times the loader alone,
    the CLI's host ms per train step beside phase 4's step, and its
    device-busy share.
+11. Drives data parallelism over torch.distributed at the same full width:
+   the DP step (make_step_fns(mesh=make_mesh())) over a one-rank NCCL
+   group against the library step on the same batches from cloned states,
+   bit for bit (losses, parameters, moments), with 20 A2 + 20 A3 launches
+   a DP step, the gradient all-reduce's device time beside its byte bound
+   and peak memory against the library step; then the training command
+   line through torchrun (one process, NCCL) for an epoch on the data
+   phase's tree with the config read without PyYAML (the child's import
+   log names no yaml module), rank 0 writing the checkpoints; then serve()
+   of that best.pt on a free port, whose HTTP replies to a PNG of the
+   served size and one of another size must equal DetectionService.detect
+   of the same decoded and resized frames.
 
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}. Any failure raises (non-zero
@@ -72,6 +84,7 @@ exit, no result line). Needs a CUDA card; there is no CPU path.
 
 from __future__ import annotations
 
+import importlib.util
 import json
 import os
 import shutil
@@ -143,6 +156,8 @@ DATA_THREADS = 4  # decode threads of the data phase's loaders
 # algorithm for another batch and round differently, so sorted scores are
 # compared to 1e-2, as the clip-vs-sequential check does.
 LSTM_SCORE_ATOL = 1e-2
+N_DP_STEPS = 3  # data-parallel steps held bit for bit against the library step
+N_ALLREDUCE_REPS = 20  # gradient all-reduces timed
 
 
 def card_line() -> str:
@@ -1158,7 +1173,7 @@ def loader_contention(det, state, batches, loader) -> str:
     return ", ".join(out)
 
 
-def run_data_cli_phase(card, K, n_blocks, library_step) -> dict:
+def run_data_cli_phase(card, K, n_blocks, library_step, scratch) -> dict:
     """The data pipeline and the two command lines at full width: a
     DSEC-shaped tree written by the port's generator (3 sequences x 9
     frames at 480x640, seq_len 5: 15 windows, 2 sequences / 10 windows /
@@ -1167,7 +1182,8 @@ def run_data_cli_phase(card, K, n_blocks, library_step) -> dict:
     main.train_code for one epoch and resumed for a second, eval_2.evaluate
     on best.pt, each with its launch counts; the loader alone, the CLI's
     host ms per train step beside the library-driven step of phase 4 and
-    its device-busy share. Returns the launches of the three runs."""
+    its device-busy share. The tree stays under ``scratch`` (``dsec/``)
+    for the data-parallel phase. Returns the launches of the three runs."""
     import contextlib
     import io
 
@@ -1180,199 +1196,490 @@ def run_data_cli_phase(card, K, n_blocks, library_step) -> dict:
     from snn_object_detectionddp_tpu_torch.evals import validator
     from snn_object_detectionddp_tpu_torch.models.detector import Detector
 
-    scratch = tempfile.mkdtemp(prefix="chip_smoke_data_")
-    try:
-        cfg = Config()  # yolo11m, 480x640, s2d4, ConvLSTM, bf16
-        h, w = cfg.model.image_size
-        t0 = time.perf_counter()
-        root = make_dataset(os.path.join(scratch, "dsec"), num_sequences=DATA_SEQS,
-                            splits=("train",), num_frames=DATA_FRAMES, height=h, width=w)
-        write_s = time.perf_counter() - t0
-        frames = sorted(str(p) for p in root.rglob("*.png"))
-        print(f"data phase: wrote {len(frames)} {h}x{w} frames with data/synthetic.py in "
-              f"{write_s:.2f} s; " + check_png(frames, scratch))
+    cfg = Config()  # yolo11m, 480x640, s2d4, ConvLSTM, bf16
+    h, w = cfg.model.image_size
+    t0 = time.perf_counter()
+    root = make_dataset(os.path.join(scratch, "dsec"), num_sequences=DATA_SEQS,
+                        splits=("train",), num_frames=DATA_FRAMES, height=h, width=w)
+    write_s = time.perf_counter() - t0
+    frames = sorted(str(p) for p in root.rglob("*.png"))
+    print(f"data phase: wrote {len(frames)} {h}x{w} frames with data/synthetic.py in "
+          f"{write_s:.2f} s; " + check_png(frames, scratch))
 
-        for split in ("train", "val", "test"):
-            cfg.dataset.split(split).path = str(root / "train")
-        tr = cfg.training
-        tr.batch_size, tr.num_workers, tr.epochs = B_TRAIN, DATA_THREADS, 1
-        tr.save_dir = os.path.join(scratch, "run")
-        tr.weights_path = os.path.join(tr.save_dir, "latest.pt")
-        with contextlib.redirect_stdout(io.StringIO()):
-            index = DSECIndex(cfg, "train")
-            train_idx, val_idx = train_val_split(index, seed=tr.seed)
-        n_train = len(train_idx) // B_TRAIN
-        n_val = -(-len(val_idx) // B_TRAIN)
-        if (len(index), len(train_idx), len(val_idx)) != (15, 10, 5):
-            raise AssertionError(f"index/split {len(index)}/{len(train_idx)}/{len(val_idx)}, want 15/10/5")
+    for split in ("train", "val", "test"):
+        cfg.dataset.split(split).path = str(root / "train")
+    tr = cfg.training
+    tr.batch_size, tr.num_workers, tr.epochs = B_TRAIN, DATA_THREADS, 1
+    tr.save_dir = os.path.join(scratch, "run")
+    tr.weights_path = os.path.join(tr.save_dir, "latest.pt")
+    with contextlib.redirect_stdout(io.StringIO()):
+        index = DSECIndex(cfg, "train")
+        train_idx, val_idx = train_val_split(index, seed=tr.seed)
+    n_train = len(train_idx) // B_TRAIN
+    n_val = -(-len(val_idx) // B_TRAIN)
+    if (len(index), len(train_idx), len(val_idx)) != (15, 10, 5):
+        raise AssertionError(f"index/split {len(index)}/{len(train_idx)}/{len(val_idx)}, want 15/10/5")
 
-        # The loader alone: two epochs of the shuffled train loader, with 1
-        # and with DATA_THREADS decode threads.
-        def make_loader(threads):
-            return BatchLoader(index, train_idx, batch_size=B_TRAIN, max_boxes=cfg.model.max_boxes,
-                               shuffle=True, seed=tr.seed, num_threads=threads, drop_last=True)
+    # The loader alone: two epochs of the shuffled train loader, with 1
+    # and with DATA_THREADS decode threads.
+    def make_loader(threads):
+        return BatchLoader(index, train_idx, batch_size=B_TRAIN, max_boxes=cfg.model.max_boxes,
+                           shuffle=True, seed=tr.seed, num_threads=threads, drop_last=True)
 
-        loader_ms = {}
-        for threads in (1, DATA_THREADS):
-            t0, batches = time.perf_counter(), []
-            for _ in range(2):
-                batches += list(make_loader(threads))
-            loader_ms[threads] = (time.perf_counter() - t0) * 1e3 / len(batches)
-        if batches[0]["images"].shape != (B_TRAIN, T_TRAIN, h, w, 3):
-            raise AssertionError(f"loader batch {batches[0]['images'].shape}")
+    loader_ms = {}
+    for threads in (1, DATA_THREADS):
+        t0, batches = time.perf_counter(), []
+        for _ in range(2):
+            batches += list(make_loader(threads))
+        loader_ms[threads] = (time.perf_counter() - t0) * 1e3 / len(batches)
+    if batches[0]["images"].shape != (B_TRAIN, T_TRAIN, h, w, 3):
+        raise AssertionError(f"loader batch {batches[0]['images'].shape}")
 
-        # Wrap the step functions train_code makes: per-step launch counts,
-        # the host clock and the calling thread's CPU at each step's start,
-        # and (when asked) a profiler window over the epoch's train steps.
-        make_step_fns = cli.make_step_fns
-        record = {}
+    # Wrap the step functions train_code makes: per-step launch counts,
+    # the host clock and the calling thread's CPU at each step's start,
+    # and (when asked) a profiler window over the epoch's train steps.
+    make_step_fns = cli.make_step_fns
+    record = {}
 
-        def instrumented(*args, **kwargs):
-            fns = make_step_fns(*args, **kwargs)
+    def instrumented(*args, **kwargs):
+        fns = make_step_fns(*args, **kwargs)
 
-            def counted(kind, fn):
-                def step(*a):
-                    prof = record.get("prof")
-                    if kind == "train" and prof is not None and "t0" not in record:
-                        prof.start()
-                        record["t0"] = time.perf_counter()
-                    if kind == "eval" and prof is not None and "t1" not in record:
-                        torch.cuda.synchronize()
-                        record["t1"] = time.perf_counter()
-                        prof.stop()
-                    record["starts"].setdefault(kind, []).append(
-                        (time.perf_counter(), time.thread_time()))
-                    c0 = dict(K.launch_counts)
-                    out = fn(*a)
-                    record["steps"].setdefault(kind, []).append(
-                        {k: K.launch_counts[k] - c0[k] for k in c0})
-                    return out
-                return step
+        def counted(kind, fn):
+            def step(*a):
+                prof = record.get("prof")
+                if kind == "train" and prof is not None and "t0" not in record:
+                    prof.start()
+                    record["t0"] = time.perf_counter()
+                if kind == "eval" and prof is not None and "t1" not in record:
+                    torch.cuda.synchronize()
+                    record["t1"] = time.perf_counter()
+                    prof.stop()
+                record["starts"].setdefault(kind, []).append(
+                    (time.perf_counter(), time.thread_time()))
+                c0 = dict(K.launch_counts)
+                out = fn(*a)
+                record["steps"].setdefault(kind, []).append(
+                    {k: K.launch_counts[k] - c0[k] for k in c0})
+                return out
+            return step
 
-            return fns._replace(train_step=counted("train", fns.train_step),
-                                eval_step=counted("eval", fns.eval_step))
+        return fns._replace(train_step=counted("train", fns.train_step),
+                            eval_step=counted("eval", fns.eval_step))
 
-        def run_cli(profile: bool):
-            record.clear()
-            record.update(steps={}, starts={})
-            if profile:
-                record["prof"] = torch.profiler.profile(activities=[
-                    torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
-            det = Detector.from_config(cfg, device="cuda")
-            out = io.StringIO()
-            cli.make_step_fns = instrumented
-            try:
-                K.reset_launch_counts()
-                with contextlib.redirect_stdout(out):
-                    state = cli.train_code(cfg, det)
-                torch.cuda.synchronize()
-                launches = dict(K.launch_counts)
-            finally:
-                cli.make_step_fns = make_step_fns
-            return state, launches, out.getvalue(), det
-
-        want_train = {"affine_lif_fwd": 0, "affine_lif_fwd_res": n_blocks, "affine_lif_bwd": n_blocks}
-        want_eval = {"affine_lif_fwd": n_blocks, "affine_lif_fwd_res": 0, "affine_lif_bwd": 0}
-        # One epoch: 20 A2 + 20 A3 a train step, 20 A1 a validation step,
-        # and 20 A1 for the spike-rate pass train_loop makes over the first
-        # validation batch.
-        want_epoch = {"affine_lif_fwd": n_blocks * (n_val + 1),
-                      "affine_lif_fwd_res": n_blocks * n_train, "affine_lif_bwd": n_blocks * n_train}
-        total = dict.fromkeys(want_epoch, 0)
-
-        def check_epoch(tag, launches, log):
-            steps = record["steps"]
-            if (len(steps.get("train", [])) != n_train or any(c != want_train for c in steps["train"])
-                    or len(steps.get("eval", [])) != n_val or any(c != want_eval for c in steps["eval"])
-                    or launches != want_epoch):
-                raise AssertionError(f"{tag}: launches {launches} (want {want_epoch}); per step "
-                                     f"{steps}")
-            for k in total:
-                total[k] += launches[k]
-            for name in ("latest.pt", "best.pt"):
-                if not os.path.exists(os.path.join(tr.save_dir, name)):
-                    raise AssertionError(f"{tag}: train_code wrote no {name}")
-            print(f"{tag}: " + " | ".join(l for l in log.splitlines()
-                                          if l.startswith(("---", "Total", "Resum", "Average"))))
-
-        state, launches, log, _ = run_cli(profile=False)
-        check_epoch("main.train_code epoch 1", launches, log)
-        if state["step"] != n_train or "--- Epoch 1/1 ---" not in log:
-            raise AssertionError(f"train_code took {state['step']} steps, want {n_train}")
-        starts = record["starts"]["train"]
-        cli_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(starts, starts[1:])]
-        cli_cpu = [(b[1] - a[1]) * 1e3 for a, b in zip(starts, starts[1:])]
-
-        tr.resume_training, tr.epochs = True, 2
-        state, launches, log, det = run_cli(profile=True)
-        check_epoch("main.train_code resumed", launches, log)
-        ckpt = torch.load(tr.weights_path, map_location="cpu", weights_only=True)
-        if ("--- Epoch 2/2 ---" not in log or "--- Epoch 1/2 ---" in log
-                or state["step"] != 2 * n_train or ckpt["epoch"] != 1
-                or ckpt["state"]["step"] != 2 * n_train):
-            raise AssertionError(f"resume did not start at epoch 2 and carry the step counter on "
-                                 f"(step {state['step']}, checkpoint epoch {ckpt['epoch']})")
-        del ckpt
-        contention = loader_contention(det, state, batches, make_loader(DATA_THREADS))
-        del state, det
-        prof, window_ms = record["prof"], (record["t1"] - record["t0"]) * 1e3
-        evs = kernel_rows(prof)
-        dev_ms = sum(e.self_device_time_total for e in evs) / 1e3
-        if dev_ms <= 0:
-            raise AssertionError("the profiler recorded no device time over the CLI's train steps")
-        n_a3 = sum(e.count for e in evs if "affine_lif_bwd_kernel" in e.key)
-        if n_a3 != n_blocks * n_train:
-            raise AssertionError(f"profiler: {n_a3} affine_lif_bwd_kernel rows over {n_train} steps")
-
-        # eval_2 on best.pt: the partial batch's padded row must not reach
-        # the metrics (one update per real window).
-        updates = [0]
-        metrics_cls = validator.DetMetrics
-
-        class CountingMetrics(metrics_cls):
-            def update(self, **kw):
-                updates[0] += 1
-                return super().update(**kw)
-
+    def run_cli(profile: bool):
+        record.clear()
+        record.update(steps={}, starts={})
+        if profile:
+            record["prof"] = torch.profiler.profile(activities=[
+                torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
+        det = Detector.from_config(cfg, device="cuda")
         out = io.StringIO()
-        validator.DetMetrics = CountingMetrics
+        cli.make_step_fns = instrumented
         try:
             K.reset_launch_counts()
             with contextlib.redirect_stdout(out):
-                results = eval_2.evaluate(cfg)
+                state = cli.train_code(cfg, det)
             torch.cuda.synchronize()
-            eval_launches = dict(K.launch_counts)
+            launches = dict(K.launch_counts)
         finally:
-            validator.DetMetrics = metrics_cls
-        keys = {"metrics/precision(B)", "metrics/recall(B)", "metrics/mAP50(B)",
-                "metrics/mAP50-95(B)", "fitness"}
-        if set(results) != keys or not all(np.isfinite(v) for v in results.values()):
-            raise AssertionError(f"eval_2 results {results}")
-        want = {"affine_lif_fwd": n_blocks * n_val, "affine_lif_fwd_res": 0, "affine_lif_bwd": 0}
-        if eval_launches != want or updates[0] != len(val_idx) or "Loaded checkpoint" not in out.getvalue():
-            raise AssertionError(f"eval_2: launches {eval_launches} (want {want}), {updates[0]} "
-                                 f"metric updates for {len(val_idx)} windows in {n_val} batches")
-        for k in total:
-            total[k] += eval_launches[k]
-        print(f"eval_2.evaluate on best.pt ok: {n_val} batches of {B_TRAIN} for {len(val_idx)} "
-              f"windows, {updates[0]} metric updates (the padded row never reached them), "
-              f"launches {eval_launches}; results (2 epochs on 5 steps) {results}")
+            cli.make_step_fns = make_step_fns
+        return state, launches, out.getvalue(), det
 
-        print(f"[{card}] data + command line (host clock): BatchLoader alone (B={B_TRAIN} "
-              f"T={T_TRAIN} {h}x{w}, shuffled, {len(batches)} batches) {loader_ms[DATA_THREADS]:.3f} "
-              f"ms/batch with {DATA_THREADS} threads, {loader_ms[1]:.3f} with 1; "
-              f"main.train_code epoch 1: {spread(cli_ms)} ms between train-step starts, calling "
-              f"thread on the CPU {spread(cli_cpu)} ms, beside phase 4's library-driven step "
-              f"{library_step['step_ms']:.3f} ms (thread on the CPU {library_step['thread_ms']:.3f} "
-              f"ms); resumed epoch under the profiler: {window_ms / n_train:.3f} ms per train "
-              f"step over the window, device (kernel) time {dev_ms / n_train:.3f} ms/step "
-              f"(phase 4: {library_step['dev_ms']:.3f}), busy {dev_ms / n_train / float(np.median(cli_ms)):.1%} "
-              f"of the unprofiled median CLI step, {dev_ms / window_ms:.1%} of the profiled window; "
-              f"the same train step synchronised, alone and with a {DATA_THREADS}-thread BatchLoader "
-              f"decoding beside it, in turns (ms, thread on the CPU ms): {contention}")
-        return total
+    want_train = {"affine_lif_fwd": 0, "affine_lif_fwd_res": n_blocks, "affine_lif_bwd": n_blocks}
+    want_eval = {"affine_lif_fwd": n_blocks, "affine_lif_fwd_res": 0, "affine_lif_bwd": 0}
+    # One epoch: 20 A2 + 20 A3 a train step, 20 A1 a validation step,
+    # and 20 A1 for the spike-rate pass train_loop makes over the first
+    # validation batch.
+    want_epoch = {"affine_lif_fwd": n_blocks * (n_val + 1),
+                  "affine_lif_fwd_res": n_blocks * n_train, "affine_lif_bwd": n_blocks * n_train}
+    total = dict.fromkeys(want_epoch, 0)
+
+    def check_epoch(tag, launches, log):
+        steps = record["steps"]
+        if (len(steps.get("train", [])) != n_train or any(c != want_train for c in steps["train"])
+                or len(steps.get("eval", [])) != n_val or any(c != want_eval for c in steps["eval"])
+                or launches != want_epoch):
+            raise AssertionError(f"{tag}: launches {launches} (want {want_epoch}); per step "
+                                 f"{steps}")
+        for k in total:
+            total[k] += launches[k]
+        for name in ("latest.pt", "best.pt"):
+            if not os.path.exists(os.path.join(tr.save_dir, name)):
+                raise AssertionError(f"{tag}: train_code wrote no {name}")
+        print(f"{tag}: " + " | ".join(l for l in log.splitlines()
+                                      if l.startswith(("---", "Total", "Resum", "Average"))))
+
+    state, launches, log, _ = run_cli(profile=False)
+    check_epoch("main.train_code epoch 1", launches, log)
+    if state["step"] != n_train or "--- Epoch 1/1 ---" not in log:
+        raise AssertionError(f"train_code took {state['step']} steps, want {n_train}")
+    starts = record["starts"]["train"]
+    cli_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(starts, starts[1:])]
+    cli_cpu = [(b[1] - a[1]) * 1e3 for a, b in zip(starts, starts[1:])]
+
+    tr.resume_training, tr.epochs = True, 2
+    state, launches, log, det = run_cli(profile=True)
+    check_epoch("main.train_code resumed", launches, log)
+    ckpt = torch.load(tr.weights_path, map_location="cpu", weights_only=True)
+    if ("--- Epoch 2/2 ---" not in log or "--- Epoch 1/2 ---" in log
+            or state["step"] != 2 * n_train or ckpt["epoch"] != 1
+            or ckpt["state"]["step"] != 2 * n_train):
+        raise AssertionError(f"resume did not start at epoch 2 and carry the step counter on "
+                             f"(step {state['step']}, checkpoint epoch {ckpt['epoch']})")
+    del ckpt
+    contention = loader_contention(det, state, batches, make_loader(DATA_THREADS))
+    del state, det
+    prof, window_ms = record["prof"], (record["t1"] - record["t0"]) * 1e3
+    evs = kernel_rows(prof)
+    dev_ms = sum(e.self_device_time_total for e in evs) / 1e3
+    if dev_ms <= 0:
+        raise AssertionError("the profiler recorded no device time over the CLI's train steps")
+    n_a3 = sum(e.count for e in evs if "affine_lif_bwd_kernel" in e.key)
+    if n_a3 != n_blocks * n_train:
+        raise AssertionError(f"profiler: {n_a3} affine_lif_bwd_kernel rows over {n_train} steps")
+
+    # eval_2 on best.pt: the partial batch's padded row must not reach
+    # the metrics (one update per real window).
+    updates = [0]
+    metrics_cls = validator.DetMetrics
+
+    class CountingMetrics(metrics_cls):
+        def update(self, **kw):
+            updates[0] += 1
+            return super().update(**kw)
+
+    out = io.StringIO()
+    validator.DetMetrics = CountingMetrics
+    try:
+        K.reset_launch_counts()
+        with contextlib.redirect_stdout(out):
+            results = eval_2.evaluate(cfg)
+        torch.cuda.synchronize()
+        eval_launches = dict(K.launch_counts)
     finally:
-        shutil.rmtree(scratch, ignore_errors=True)
+        validator.DetMetrics = metrics_cls
+    keys = {"metrics/precision(B)", "metrics/recall(B)", "metrics/mAP50(B)",
+            "metrics/mAP50-95(B)", "fitness"}
+    if set(results) != keys or not all(np.isfinite(v) for v in results.values()):
+        raise AssertionError(f"eval_2 results {results}")
+    want = {"affine_lif_fwd": n_blocks * n_val, "affine_lif_fwd_res": 0, "affine_lif_bwd": 0}
+    if eval_launches != want or updates[0] != len(val_idx) or "Loaded checkpoint" not in out.getvalue():
+        raise AssertionError(f"eval_2: launches {eval_launches} (want {want}), {updates[0]} "
+                             f"metric updates for {len(val_idx)} windows in {n_val} batches")
+    for k in total:
+        total[k] += eval_launches[k]
+    print(f"eval_2.evaluate on best.pt ok: {n_val} batches of {B_TRAIN} for {len(val_idx)} "
+          f"windows, {updates[0]} metric updates (the padded row never reached them), "
+          f"launches {eval_launches}; results (2 epochs on 5 steps) {results}")
+
+    print(f"[{card}] data + command line (host clock): BatchLoader alone (B={B_TRAIN} "
+          f"T={T_TRAIN} {h}x{w}, shuffled, {len(batches)} batches) {loader_ms[DATA_THREADS]:.3f} "
+          f"ms/batch with {DATA_THREADS} threads, {loader_ms[1]:.3f} with 1; "
+          f"main.train_code epoch 1: {spread(cli_ms)} ms between train-step starts, calling "
+          f"thread on the CPU {spread(cli_cpu)} ms, beside phase 4's library-driven step "
+          f"{library_step['step_ms']:.3f} ms (thread on the CPU {library_step['thread_ms']:.3f} "
+          f"ms); resumed epoch under the profiler: {window_ms / n_train:.3f} ms per train "
+          f"step over the window, device (kernel) time {dev_ms / n_train:.3f} ms/step "
+          f"(phase 4: {library_step['dev_ms']:.3f}), busy {dev_ms / n_train / float(np.median(cli_ms)):.1%} "
+          f"of the unprofiled median CLI step, {dev_ms / window_ms:.1%} of the profiled window; "
+          f"the same train step synchronised, alone and with a {DATA_THREADS}-thread BatchLoader "
+          f"decoding beside it, in turns (ms, thread on the CPU ms): {contention}")
+    return total
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_step_check(card, K, n_blocks, rng) -> dict:
+    """(i) The data-parallel step over a one-rank NCCL group against the
+    library step at full width, on the same batches from cloned states:
+    an all-reduce over one rank is the identity and x + (x - x) is x, so
+    losses, parameters and moments must be bit-equal. Also the launches per
+    DP step, the gradient all-reduce's device time beside its byte bound,
+    and peak memory against the library step. Returns the launches of the
+    DP steps."""
+    from snn_object_detectionddp_tpu_torch.config import Config
+    from snn_object_detectionddp_tpu_torch.models.detector import Detector
+    from snn_object_detectionddp_tpu_torch.parallel import mesh as pmesh
+    from snn_object_detectionddp_tpu_torch.train.step import init_state, make_optimizer, make_step_fns
+
+    torch.cuda.set_device(0)
+    pmesh.init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    # Deterministic algorithms (cuDNN's, and the gather's backward): the
+    # comparison is bit for bit, and a library step that differs from
+    # itself would hide what DP does.
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        pmesh.collective_barrier("cuda")
+        mesh = pmesh.make_mesh()
+        if (mesh.size, mesh.rank, mesh.group is None) != (1, 0, False):
+            raise AssertionError(f"one-rank NCCL mesh {mesh}")
+        cfg = Config()  # yolo11m, 480x640, s2d4, ConvLSTM, bf16
+        h, w = cfg.model.image_size
+        det = Detector.from_config(cfg, device="cuda")
+        params = det.init_params(torch.Generator().manual_seed(SEED + 2))
+        n_params = sum(v.numel() for v in params.values())
+        tr = cfg.training
+        tx, sched = make_optimizer(tr.learning_rate, 10, tr.weight_decay, tr.grad_clip_norm,
+                                   tr.pct_start)
+        library, dp = make_step_fns(det, tx, sched), make_step_fns(det, tx, sched, mesh=mesh)
+        clone = lambda: {k: v.clone() for k, v in params.items()}  # noqa: E731
+        st_lib, st_dp = init_state(clone(), tx, sched), init_state(clone(), tx, sched)
+        want = {"affine_lif_fwd": 0, "affine_lif_fwd_res": n_blocks, "affine_lif_bwd": n_blocks}
+        launches = dict.fromkeys(want, 0)
+        peak, step_ms, rows, metric_diffs = {}, {"dp": [], "library": []}, [], []
+        batches = [moving_boxes_batch(rng, B_TRAIN, T_TRAIN, h, w, cfg.model.num_classes)
+                   for _ in range(N_DP_STEPS)]
+        for i, batch in enumerate(batches):
+            for kind in ("dp", "library"):
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                c0, t0 = dict(K.launch_counts), time.perf_counter()
+                if kind == "dp":
+                    st_dp, m_dp = dp.train_step(st_dp, batch)
+                else:
+                    st_lib, m_lib = library.train_step(st_lib, batch)
+                torch.cuda.synchronize()
+                step_ms[kind].append((time.perf_counter() - t0) * 1e3)
+                peak[kind] = max(peak.get(kind, 0), torch.cuda.max_memory_allocated())
+                got = {k: K.launch_counts[k] - c0[k] for k in c0}
+                if got != want:
+                    raise AssertionError(f"{kind} step {i} launched {got}, want {want}")
+                if kind == "dp":
+                    for k in launches:
+                        launches[k] += got[k]
+            m_dp = {k: float(v) for k, v in m_dp.items()}
+            m_lib = {k: float(v) for k, v in m_lib.items()}
+            rows.append(f"loss {m_dp['loss']:.6f} grad_norm {m_dp['grad_norm']:.4f}")
+            if m_dp != m_lib:
+                metric_diffs.append((i, {k: (m_dp[k], m_lib[k]) for k in m_dp if m_dp[k] != m_lib[k]}))
+
+        def state_diffs(a, b) -> dict:
+            out = {}
+            for part in ("params", "mu", "nu"):
+                ta = a["params"] if part == "params" else a["opt_state"][part]
+                tb = b["params"] if part == "params" else b["opt_state"][part]
+                for k, v in ta.items():
+                    if not torch.equal(tb[k], v):
+                        out[f"{part} {k}"] = (tb[k] - v).abs().max().item()
+            return out
+
+        diffs = state_diffs(st_lib, st_dp)
+        if diffs or metric_diffs:
+            # The reason, on the first batch from the initial parameters:
+            # does the library's gradient repeat itself bit for bit, does the
+            # DP gradient equal it, and does the clip's norm differ?
+            from snn_object_detectionddp_tpu_torch.train.step import global_norm
+
+            g_a, _ = library.grads(params, batches[0])
+            g_b, _ = library.grads(params, batches[0])
+            g_dp, _ = dp.grads(params, batches[0])
+            neq = lambda x, y: sum(not torch.equal(x[k], y[k]) for k in x)  # noqa: E731
+            norms = [float(global_norm(g.values())) for g in (g_a, g_b, g_dp)]
+            norm_copy = float(global_norm([v.clone() for v in g_dp.values()]))
+            strided = sum(not g.is_contiguous() for g in g_a.values())
+            reason = (f"library gradient vs itself: {neq(g_a, g_b)} leaves differ; DP vs library "
+                      f"gradient: {neq(g_dp, g_a)} leaves differ ({strided} library leaves not "
+                      f"contiguous); global norms library "
+                      f"{norms[0]!r} / {norms[1]!r}, DP {norms[2]!r}, DP copied out of the flat "
+                      f"buffer {norm_copy!r}")
+            worst = max(diffs.items(), key=lambda kv: kv[1]) if diffs else None
+            raise AssertionError(f"DP and library steps are not bit-equal over {N_DP_STEPS} "
+                                 f"steps: metrics {metric_diffs}; {len(diffs)} state tensors "
+                                 f"differ, largest {worst}; {reason}")
+        print(f"[{card}] DP step (one-rank NCCL group, make_step_fns(mesh=make_mesh())) vs the "
+              f"library step, full width {cfg.model.yolo_model_name} {h}x{w} bf16, T={T_TRAIN} "
+              f"B={B_TRAIN}, {N_DP_STEPS} steps from cloned states on the same batches: bit-equal "
+              f"losses and metrics ({'; '.join(rows)}), "
+              f"bit-equal parameters, mu and nu ({n_params} each); launches per DP step {want}; "
+              f"host ms per step DP {[round(x, 3) for x in step_ms['dp']]}, library "
+              f"{[round(x, 3) for x in step_ms['library']]}; peak memory DP "
+              f"{peak['dp'] / 2**30:.3f} GiB, library {peak['library'] / 2**30:.3f} GiB "
+              f"(+{(peak['dp'] - peak['library']) / 2**20:.1f} MiB)")
+        del st_lib, library
+
+        # The gradient all-reduce alone: the copy into the flat buffer, one
+        # SUM over it, views out. Device time with the host's enqueue hidden
+        # behind a device sleep (time_cuda): ~150 small host ops a call
+        # would otherwise show as device idle. Each call reads the same
+        # 527.6 MB, beyond the L2.
+        grads = {k: torch.randn_like(v) for k, v in params.items()}
+        n_bytes = 4 * n_params
+        flat = torch.empty(n_params, device="cuda")
+        reps = dict(bytes_per_call=2 * n_bytes, min_bytes=N_ALLREDUCE_REPS * 2 * n_bytes)
+        whole_ms = time_cuda(lambda: pmesh.all_reduce_grads(grads, mesh), tuple, **reps)
+        ar_ms = time_cuda(lambda: torch.distributed.all_reduce(flat, group=mesh.group), tuple,
+                          **reps)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(N_ALLREDUCE_REPS):
+            pmesh.all_reduce_grads(grads, mesh)
+        torch.cuda.synchronize()
+        host_ms = (time.perf_counter() - t0) * 1e3 / N_ALLREDUCE_REPS
+        out = pmesh.all_reduce_grads(grads, mesh)
+        if not all(torch.equal(out[k], g) for k, g in grads.items()):
+            raise AssertionError("the all-reduce over one rank changed a gradient")
+        bound_ms = 2 * n_bytes / HBM_BYTES_PER_S * 1e3  # read each gradient, write the sum
+        print(f"[{card}] DP overhead: all_reduce_grads of {n_params} fp32 gradients "
+              f"({n_bytes / 1e6:.1f} MB) {whole_ms:.4f} ms device time (CUDA events, host "
+              f"enqueue hidden), of which the one-rank NCCL all-reduce of the flat buffer alone "
+              f"{ar_ms:.4f} ms and the copy into it (segments aligned to "
+              f"{pmesh.SEGMENT_ALIGN} elements) the rest; {host_ms:.4f} ms a call on the host "
+              f"clock, synchronised, mean of {N_ALLREDUCE_REPS}; bound {bound_ms:.4f} ms (each "
+              f"gradient read once and the sum written once, {2 * n_bytes / 1e9:.3f} GB at "
+              f"{HBM_BYTES_PER_S / 1e12:.2f} TB/s), {bound_ms / whole_ms:.0%} of it; host time "
+              f"{host_ms / float(np.median(step_ms['dp'][1:])):.2%} of the DP step's median "
+              f"host ms")
+        del grads, flat, out, st_dp, dp, det, params
+        torch.cuda.empty_cache()
+        return launches
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags[:2]
+        torch.use_deterministic_algorithms(flags[2])
+        torch.distributed.destroy_process_group()
+
+
+def torchrun_epoch(card, scratch) -> str:
+    """(ii) One epoch of the command line through torchrun (one process,
+    NCCL) on the data phase's tree, the config read without PyYAML: the
+    child's import log (PYTHONPROFILEIMPORTTIME) must name no yaml module.
+    Rank 0 writes the checkpoints. Returns the best.pt path."""
+    root = os.path.join(scratch, "dsec", "train")
+    save_dir = os.path.join(scratch, "dp_run")
+    cfg_path = os.path.join(scratch, "dp_config.yaml")
+    split = "\n".join(f"  {s}:\n    path: \"{root}\"\n    seq_len: {T_TRAIN}"
+                      for s in ("train", "val", "test"))
+    with open(cfg_path, "w") as f:
+        f.write(f"# one epoch of the default model through torchrun\ndataset:\n{split}\n"
+                f"mode: \"train\"\ntraining:\n  batch_size: {B_TRAIN}\n  num_workers: "
+                f"{DATA_THREADS}\n  epochs: 1\n  save_dir: \"{save_dir}\"\n  weights_path: "
+                f"\"{save_dir}/latest.pt\"\nmesh:\n  data: -1  # the whole process group\n")
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPROFILEIMPORTTIME="1",
+               PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "1",
+           "-m", "snn_object_detectionddp_tpu_torch.main", "--config", cfg_path]
+    t0 = time.perf_counter()
+    proc = subprocess.run(cmd, cwd=repo, env=env, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    imports = [l.rsplit("|", 1)[-1].strip() for l in proc.stderr.splitlines()
+               if l.startswith("import time:")]
+    errors = "\n".join(l for l in proc.stderr.splitlines() if not l.startswith("import time:"))
+    if proc.returncode != 0:
+        raise AssertionError(f"torchrun exited {proc.returncode}:\n{proc.stdout[-4000:]}\n"
+                             f"{errors[-4000:]}")
+    yaml_mods = sorted({m for m in imports if m == "yaml" or m.startswith("yaml.")})
+    if yaml_mods or not imports:
+        raise AssertionError(f"the torchrun child imported {yaml_mods} (import log of "
+                             f"{len(imports)} modules)")
+    log = proc.stdout
+    needed = ("torch.distributed initialized (nccl): process 0/1", "--- Epoch 1/1 ---",
+              "Training finished!", "Best checkpoint written")
+    if not all(n in log for n in needed):
+        raise AssertionError(f"torchrun log lacks {[n for n in needed if n not in log]}:\n{log[-4000:]}")
+    best = os.path.join(save_dir, "best.pt")
+    ckpt = torch.load(os.path.join(save_dir, "latest.pt"), map_location="cpu", weights_only=True)
+    if not os.path.exists(best) or ckpt["epoch"] != 0 or ckpt["state"]["step"] != 5:
+        raise AssertionError(f"torchrun epoch: checkpoint epoch {ckpt['epoch']}, step "
+                             f"{ckpt['state']['step']} (want 0, 5), best.pt {os.path.exists(best)}")
+    del ckpt
+    here = ("installed on this machine, not imported by the child"
+            if importlib.util.find_spec("yaml") else "not installed on this machine")
+    print(f"[{card}] torchrun --standalone --nproc_per_node 1 -m snn_object_detectionddp_tpu_torch.main "
+          f"--config (YAML subset reader; PyYAML {here}; {len(imports)} modules imported, none "
+          f"of yaml): one epoch on the 480x640 tree in {wall:.1f} s of wall time, child and "
+          f"launcher start included; rank 0 wrote latest.pt (epoch 0, step 5) and best.pt; log: "
+          + " | ".join(l for l in log.splitlines()
+                       if l.startswith(("torch.distributed", "Total", "Average", "New best"))))
+    return best
+
+
+def serve_checkpoint(card, best) -> None:
+    """(iii) serve() on the torchrun run's best.pt, on a free port: a PNG of
+    the served size and one of another size, POSTed; each reply must equal
+    DetectionService.detect of the same decoded and resized frame."""
+    import base64
+    import urllib.request
+
+    from snn_object_detectionddp_tpu_torch.config import Config
+    from snn_object_detectionddp_tpu_torch.data.png import decode_png, write_rgb
+    from snn_object_detectionddp_tpu_torch.data.resize import resize_linear_u8
+    from snn_object_detectionddp_tpu_torch.serve import serve
+    from snn_object_detectionddp_tpu_torch.train.checkpoint import load_checkpoint
+
+    cfg = Config()
+    h, w = cfg.model.image_size
+    ready, held = threading.Event(), {}
+
+    def on_ready(httpd, service):
+        held.update(httpd=httpd, service=service)
+        ready.set()
+
+    th = threading.Thread(target=serve, args=(cfg, best),
+                          kwargs=dict(port=0, max_batch=1, max_clip=1, on_ready=on_ready),
+                          daemon=True)
+    th.start()
+    try:
+        if not ready.wait(timeout=600):
+            raise AssertionError("serve() did not start listening")
+        svc, port = held["service"], held["httpd"].server_address[1]
+        packed = load_checkpoint(best, {"params": dict(svc.detector.module.named_parameters())},
+                                 "cpu")
+        if not all(torch.equal(svc.params[k].cpu(), v) for k, v in packed["state"]["params"].items()):
+            raise AssertionError("serve() did not load best.pt's parameters")
+        del packed
+        svc.conf = 0.0  # every candidate, so that the comparison is not empty
+        rng = np.random.RandomState(SEED + 3)
+        lines = []
+        with tempfile.TemporaryDirectory() as tmp:
+            for size in ((h, w), (360, 500)):
+                img = rng.randint(0, 256, (*size, 3), dtype=np.uint8)
+                path = os.path.join(tmp, "upload.png")
+                write_rgb(path, img)
+                data = open(path, "rb").read()
+                body = json.dumps({"stream": f"http{size}", "image": base64.b64encode(data).decode()})
+                t0 = time.perf_counter()
+                with urllib.request.urlopen(urllib.request.Request(
+                        f"http://127.0.0.1:{port}/detect", body.encode()), timeout=300) as r:
+                    out = json.loads(r.read())
+                post_ms = (time.perf_counter() - t0) * 1e3
+                frame = decode_png(data)
+                if frame.shape[:2] != (h, w):
+                    frame = resize_linear_u8(frame, (h, w))
+                ref = svc.detect(f"ref{size}", frame)
+                keys = ("boxes", "scores", "classes")
+                if {k: out[k] for k in keys} != {k: ref[k] for k in keys} or not out["scores"]:
+                    raise AssertionError(f"HTTP reply for a {size} PNG differs from detect() "
+                                         f"({len(out['scores'])} vs {len(ref['scores'])} detections)")
+                lines.append(f"{size[0]}x{size[1]} PNG: {len(out['scores'])} detections equal to "
+                             f"detect() of the decoded{' and resized' if size != (h, w) else ''} "
+                             f"frame, {post_ms:.1f} ms for the POST")
+        print(f"[{card}] serve() of the torchrun best.pt on port {port} (weights equal to the "
+              f"file's, conf 0): " + "; ".join(lines))
+    finally:
+        if "httpd" in held:
+            held["httpd"].shutdown()
+        th.join(timeout=120)
+    if th.is_alive():
+        raise AssertionError("serve() did not return after shutdown")
+
+
+def run_parallel_phase(card, K, n_blocks, scratch, rng) -> dict:
+    """Data parallelism over torch.distributed at full width: (i) the DP
+    step against the library step over a one-rank NCCL group, (ii) the
+    command line through torchrun on the data phase's tree, (iii) serve()
+    of its best.pt over HTTP. Returns the DP steps' launches."""
+    launches = dp_step_check(card, K, n_blocks, rng)
+    serve_checkpoint(card, torchrun_epoch(card, scratch))
+    return launches
 
 
 def main() -> None:
@@ -1666,8 +1973,16 @@ def main() -> None:
     # -- phase 5: the data pipeline and the two command lines ---------------
     del det
     torch.cuda.empty_cache()
-    for k, v in run_data_cli_phase(card, K, n_blocks, library_step).items():
-        launches[k] += v
+    scratch = tempfile.mkdtemp(prefix="chip_smoke_data_")
+    try:
+        for k, v in run_data_cli_phase(card, K, n_blocks, library_step, scratch).items():
+            launches[k] += v
+        torch.cuda.empty_cache()
+        # -- phase 6: data parallelism over torch.distributed ---------------
+        for k, v in run_parallel_phase(card, K, n_blocks, scratch, rng).items():
+            launches[k] += v
+    finally:
+        shutil.rmtree(scratch, ignore_errors=True)
 
     scan_ms = time_scan_kernels(card, KL, lif_mod, lif_shapes, gen)
 

@@ -1,11 +1,12 @@
 """Config system: the reference's ``config.yaml`` schema plus extensions.
 
 A copy of the JAX package's config dataclasses and validation, so the same
-YAML files load into the same values. Differences: ``yaml`` is imported
-only inside :func:`load_config` (``Config()`` defaults need no YAML), and
-there is no platform forcing — the port's entry points take an explicit
-``device`` instead. ``runtime.lif_kernel`` values are still accepted for
-schema compatibility, but the port picks its LIF path by tensor device
+YAML files load into the same values. Differences: :func:`load_config`
+reads YAML with the port's own reader of the subset the configs use
+(utils/yaml_subset.py), not PyYAML, and there is no platform forcing —
+the port's entry points take an explicit ``device`` instead.
+``runtime.lif_kernel`` values are still accepted for schema
+compatibility, but the port picks its LIF path by tensor device
 (models/lif.py::run_affine_lif_tb), not by this key.
 """
 
@@ -15,6 +16,8 @@ import dataclasses
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any
+
+from .utils import yaml_subset
 
 
 @dataclass
@@ -232,11 +235,10 @@ def _validate(obj) -> None:
 
 
 def load_config(path: str | Path = "config.yaml") -> Config:
-    """Load and validate a YAML config (reference: main.py:120-121)."""
-    import yaml
-
-    with open(path, "r") as f:
-        raw = yaml.safe_load(f)
+    """Load and validate a YAML config (reference: main.py:120-121) through
+    the port's reader of the YAML subset the configs use
+    (utils/yaml_subset.py): no PyYAML needed."""
+    raw = yaml_subset.parse(Path(path).read_text())
     cfg = Config.from_dict(raw)
     # Back-compat: resolve the bottleneck kind from use_conv_lstm when the
     # raw YAML didn't set `bottleneck` (reference semantics: config.yaml:32).

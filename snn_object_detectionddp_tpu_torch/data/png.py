@@ -5,14 +5,15 @@ loader linked against libpng) and writes its synthetic frames with
 ``cv2.imwrite``. The machine the port runs on need not have either, so the
 port reads and writes PNG itself:
 
-- :func:`read_rgb` parses the chunks (CRC checked), inflates the
-  concatenated IDAT stream with the standard library's ``zlib``, undoes the
-  five row filters in compiled host code (``csrc/png_unfilter.cpp`` through
-  :mod:`.native`) and converts to RGB with ``cv2.IMREAD_COLOR`` semantics:
-  gray is replicated, alpha is dropped, a palette is looked up. It takes
-  8-bit non-interlaced gray, gray+alpha, RGB, RGBA and palette images and
-  raises ``ValueError`` naming the file on anything else (16-bit,
-  interlaced, corrupt or of the wrong size).
+- :func:`decode_png` (and :func:`read_rgb`, for a file) parses the chunks
+  (CRC checked), inflates the concatenated IDAT stream with the standard
+  library's ``zlib``, undoes the five row filters in compiled host code
+  (``csrc/png_unfilter.cpp`` through :mod:`.native`) and converts to RGB
+  with ``cv2.IMREAD_COLOR`` semantics: gray is replicated, alpha is
+  dropped, a palette is looked up. It takes 8-bit non-interlaced gray,
+  gray+alpha, RGB, RGBA and palette images and raises ``ValueError``
+  naming the file (or the ``name`` given with the bytes) on anything else
+  (16-bit, interlaced, corrupt or of the wrong size).
 - :func:`write_rgb` writes 8-bit RGB with one filter type for every row
   (Sub by default, as ``cv2.imwrite`` writes these frames) and ``zlib``.
 - :func:`unfilter_reference` is the plain numpy version of the row
@@ -83,8 +84,13 @@ def png_shape(path: str | Path) -> tuple[int, int]:
 
 def read_rgb(path: str | Path) -> np.ndarray:
     """Decode a PNG file into an (H, W, 3) uint8 RGB array."""
-    name = str(path)
-    data = Path(path).read_bytes()
+    return decode_png(Path(path).read_bytes(), str(path))
+
+
+def decode_png(data: bytes, name: str = "PNG data") -> np.ndarray:
+    """Decode PNG bytes into an (H, W, 3) uint8 RGB array: the pixels of
+    ``cv2.imdecode(data, cv2.IMREAD_COLOR)`` in RGB order. ``name`` labels
+    the errors."""
     header, palette, idat = None, None, []
     for ctype, payload in _chunks(data, name):
         if ctype == b"IHDR":

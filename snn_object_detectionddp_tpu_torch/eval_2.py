@@ -7,7 +7,9 @@ The port's counterpart of the JAX package's ``eval_2.py``: load ``best.pt``
 weights, rebuild the seeded validation split, run the recurrent model, NMS
 (conf 0.001, iou 0.6, 300 detections) and print the DetMetrics results.
 With no checkpoint it warns and evaluates a fresh initialisation. Runs on
-the card; ``--config`` needs PyYAML.
+the card; the config is read without PyYAML. Launched by torchrun on N
+processes, each evaluates its share of the windows on ``cuda:LOCAL_RANK``
+and the results cover all of them (evals/validator.py).
 """
 
 from __future__ import annotations
@@ -20,18 +22,23 @@ import torch
 
 from .evals.validator import evaluate_model
 from .models.detector import Detector
+from .parallel.mesh import (
+    make_mesh,
+    maybe_init_distributed,
+    process_device,
+    refuse_unported_axes,
+)
 from .train.checkpoint import load_checkpoint
 
 
 def evaluate(cfg, weights: str | None = None, device: str | torch.device = "cuda") -> dict:
     """Evaluate ``weights`` (default ``<save_dir>/best.pt``) on the
-    validation split that ``cfg`` names; returns the results dict."""
-    if cfg.mesh.spatial > 1 or cfg.mesh.tensor > 1 or cfg.mesh.data > 1:
-        raise NotImplementedError(
-            "multi-device evaluation (mesh.data/spatial/tensor > 1) waits on the "
-            "parallelism slice (ROADMAP §1 item 2); set the mesh to one device"
-        )
+    validation split that ``cfg`` names; returns the results dict. In a
+    process group of more than one process the evaluation is split over a
+    data mesh; ``mesh.spatial`` and ``mesh.tensor`` raise."""
+    refuse_unported_axes(cfg.mesh, train=False)
     detector = Detector.from_config(cfg, device=device)
+    mesh = make_mesh(cfg.mesh.data)
     weights_path = Path(weights) if weights else Path(cfg.training.save_dir) / "best.pt"
     if weights_path.exists():
         # The template gives structure and shapes only: the skeleton's
@@ -43,7 +50,7 @@ def evaluate(cfg, weights: str | None = None, device: str | torch.device = "cuda
     else:
         params = detector.init_params(torch.Generator().manual_seed(0))
         print(f"WARNING: no checkpoint at {weights_path}; evaluating fresh init.")
-    return evaluate_model(cfg, detector, params)
+    return evaluate_model(cfg, detector, params, mesh=mesh if mesh.size > 1 else None)
 
 
 def main(argv=None) -> dict:
@@ -55,7 +62,9 @@ def main(argv=None) -> dict:
         sys.exit("eval_2 needs a CUDA card (torch.cuda.is_available() is False)")
     from .config import load_config
 
-    return evaluate(load_config(args.config), args.weights)
+    cfg = load_config(args.config)
+    maybe_init_distributed(cfg)
+    return evaluate(cfg, args.weights, device=process_device())
 
 
 if __name__ == "__main__":

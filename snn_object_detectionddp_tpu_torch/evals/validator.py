@@ -10,6 +10,14 @@ one-batch-delayed fetch.
 :func:`evaluate_batches` takes the batches from the caller;
 :func:`evaluate_model` reads the seeded validation split of the DSEC
 directory a config names through the data pipeline (``data/``).
+
+With a data mesh (parallel/mesh.py) every process predicts its own
+contiguous, unpadded share of the validation windows, and the per-image
+records (boxes, scores, classes, ground truth) are gathered to rank 0 in
+validation-index order before they reach ``DetMetrics``: the results equal
+one process's exactly (the metric's confidence sort breaks ties by order,
+so the order is kept). Rank 0 alone computes the metric and sends the
+results dict to the other ranks.
 """
 
 from __future__ import annotations
@@ -24,6 +32,14 @@ from ..data.encoding import preprocess_video
 from ..data.pipeline import BatchLoader
 from ..models.detect import decode_predictions
 from ..ops.nms import batched_nms
+from ..parallel.mesh import (
+    broadcast_from_main,
+    eval_shard,
+    gather_to_main,
+    is_main_process,
+    local_batch_size,
+    pad_batch_to_devices,
+)
 from ..train.loop import _progress
 from ..utils.pipelining import DelayedFetch
 from .map import DetMetrics
@@ -38,15 +54,12 @@ EVAL_PRE_NMS_TOPK = 30000
 
 
 def make_predict_fn(detector, conf=EVAL_CONF, iou=EVAL_IOU, max_det=EVAL_MAX_DET,
-                    multi_label=False, pre_nms_topk=EVAL_PRE_NMS_TOPK, mesh=None):
+                    multi_label=False, pre_nms_topk=EVAL_PRE_NMS_TOPK):
     """(params, images_u8 (B, T, H, W, 3)) -> fixed-shape NMS dict of tensors
     on the detector's device, computed without a gradient. ``images_u8`` is
     a uint8 numpy array or tensor; ``params`` must already be on the
-    detector's device."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded evaluation is not ported yet; evaluate on one device (mesh=None)"
-        )
+    detector's device. Under a data mesh each process predicts its own
+    batches with the whole model, so the function takes no mesh."""
     reg_max = detector.cfg.model.hyp.reg_max
     nc = detector.cfg.model.num_classes
 
@@ -79,14 +92,15 @@ def evaluate_batches(detector, params, batches: Iterable[dict], predict=None,
     [class, cx, cy, w, h] normalized, ``label_mask`` (B, max_boxes) bool and
     ``paths`` — one entry per real sample, so rows a loader padded the batch
     with never reach the metrics. ``predict`` defaults to
-    :func:`make_predict_fn` at the evaluation thresholds."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded evaluation is not ported yet; evaluate on one device (mesh=None)"
-        )
+    :func:`make_predict_fn` at the evaluation thresholds.
+
+    ``mesh``: a data mesh; ``batches`` are then this process's share, in
+    order. The records are gathered to rank 0 in rank order, rank 0
+    computes the results over all processes' images, and every process
+    returns them."""
     if predict is None:
         predict = make_predict_fn(detector)
-    metrics = DetMetrics(detector.cfg.model.num_classes)
+    records = []  # one metric update per real sample, in batch order
 
     def accumulate(out_dev, batch):
         out = {k: v.cpu().numpy() for k, v in out_dev.items()}
@@ -96,21 +110,28 @@ def evaluate_batches(detector, params, batches: Iterable[dict], predict=None,
             valid = out["valid"][i]
             gt = batch["labels"][i][batch["label_mask"][i]]
             gt_boxes = _cxcywh_to_xyxy(gt[:, 1:] * scale) if gt.size else np.zeros((0, 4))
-            metrics.update(
+            records.append(dict(
                 pred_boxes=out["boxes"][i][valid],
                 pred_conf=out["scores"][i][valid],
                 pred_cls=out["classes"][i][valid],
                 gt_boxes=gt_boxes,
                 gt_cls=gt[:, 0] if gt.size else np.zeros(0),
-            )
+            ))
 
-    # One-batch-delayed fetch: batch k's copy to the host and metric
-    # accumulation run while the device computes batch k+1.
+    # One-batch-delayed fetch: batch k's copy to the host runs while the
+    # device computes batch k+1.
     fetch = DelayedFetch(accumulate)
     for batch in batches:
         fetch.push(predict(params, batch["images"]), batch)
     fetch.flush()
-    return metrics.results_dict()
+    everyone = gather_to_main(records, mesh)
+    results = None
+    if everyone is not None:  # rank 0, or no mesh
+        metrics = DetMetrics(detector.cfg.model.num_classes)
+        for rec in everyone:
+            metrics.update(**rec)
+        results = metrics.results_dict()
+    return broadcast_from_main(results, mesh)
 
 
 def evaluate_model(cfg, detector, params, batch_size: int | None = None, mesh=None) -> dict:
@@ -118,19 +139,25 @@ def evaluate_model(cfg, detector, params, batch_size: int | None = None, mesh=No
     ``cfg.dataset.train`` names (the JAX package's ``evaluate_model``): the
     same sequence split as training, a loader without shuffling whose
     padded last-batch rows never reach the metrics, and the results dict,
-    printed and returned. ``params`` must be on the detector's device."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded evaluation is not ported yet; evaluate on one device (mesh=None)"
-        )
+    printed and returned. ``params`` must be on the detector's device.
+
+    ``mesh``: a data mesh. The global batch (``batch_size``, rounded up to
+    a multiple of the mesh) is split over the processes, each predicts its
+    contiguous share of the windows without padding, and every process
+    returns the results over all windows; rank 0 prints them."""
     index = DSECIndex(cfg, "train")
     _, val_idx = train_val_split(index, seed=cfg.training.seed)
+    bs = batch_size or cfg.training.batch_size
+    if mesh is not None:
+        bs = local_batch_size(pad_batch_to_devices(bs, mesh.size), mesh.size)
     loader = BatchLoader(
-        index, val_idx, batch_size=batch_size or cfg.training.batch_size,
+        index, eval_shard(val_idx, mesh), batch_size=bs,
         max_boxes=cfg.model.max_boxes, shuffle=False, num_threads=cfg.training.num_workers,
     )
-    results = evaluate_batches(detector, params, _progress(loader, "Evaluating", len(loader)))
-    print("\n--- Evaluation Results ---")
-    for k, v in results.items():
-        print(f"{k}: {v:.5f}")
+    results = evaluate_batches(detector, params, _progress(loader, "Evaluating", len(loader)),
+                               mesh=mesh)
+    if is_main_process():
+        print("\n--- Evaluation Results ---")
+        for k, v in results.items():
+            print(f"{k}: {v:.5f}")
     return results

@@ -18,6 +18,7 @@ import torch
 from ..models.detect import dfl_expectation, flatten_predictions
 from ..ops.anchors import bbox2dist, dist2bbox
 from ..ops.boxes import ciou, cxcywh_to_xyxy
+from ..parallel.mesh import DataMesh, global_sum
 from .tal import task_aligned_assign
 
 
@@ -76,18 +77,21 @@ def detection_loss(
     gain_cls: float = 1.0,
     gain_dfl: float = 2.5,
     sample_mask: torch.Tensor | None = None,  # (B,) bool; False = padding row
-    cross_replica_axis: str | None = None,
+    cross_replica_axis: DataMesh | None = None,
 ) -> LossComponents:
     """``sample_mask`` excludes the padding rows of a final partial batch
     from every loss term: with the mask, the loss of a padded batch equals
     the loss of the unpadded batch.
 
-    ``cross_replica_axis`` belongs to data-parallel training, which this
-    package does not run yet: anything but None raises."""
-    if cross_replica_axis is not None:
-        raise NotImplementedError(
-            "cross_replica_axis: data-parallel loss normalization is not ported"
-        )
+    ``cross_replica_axis``: the data mesh (parallel/mesh.py) the batch is
+    split over. The batch count and the sums the loss is normalised by
+    (target scores, class, box and DFL terms, foreground count) are summed
+    across the mesh BEFORE the clamps and divisions, with the gradient
+    through each process's own terms (``global_sum``): every process holds
+    the exact global-batch loss, the JAX package's psum semantics."""
+    if cross_replica_axis is not None and not isinstance(cross_replica_axis, DataMesh):
+        raise TypeError("cross_replica_axis takes the data mesh of parallel/mesh.py::make_mesh "
+                        f"(a DataMesh), not {type(cross_replica_axis).__name__}")
     dev = raw_maps[0].device
     if sample_mask is None:
         batch = torch.tensor(float(raw_maps[0].shape[0]), device=dev)
@@ -96,7 +100,6 @@ def detection_loss(
         sample_mask = sample_mask.to(dev, torch.float32)
         batch = sample_mask.sum()
         row_w = sample_mask[:, None, None]  # (B, 1, 1)
-    batch = batch.clamp(min=1.0)
     box_logits, cls_logits, anchor_points, stride_t = flatten_predictions(
         raw_maps, reg_max, num_classes
     )
@@ -159,6 +162,12 @@ def detection_loss(
     target_ltrb = bbox2dist(target_bboxes_grid, anchor_points, reg_max)
     sum_dfl = (_dfl_loss(pred_dist, target_ltrb) * weight).sum()
 
+    # Normalise by GLOBAL sums: under data parallelism the divisions come
+    # after the cross-process sums, reproducing the one-device math.
+    if cross_replica_axis is not None:
+        batch, target_scores_sum, sum_cls, sum_box, sum_dfl, fg_count = global_sum(
+            (batch, target_scores_sum, sum_cls, sum_box, sum_dfl, fg_count), cross_replica_axis)
+    batch = batch.clamp(min=1.0)
     target_scores_sum = target_scores_sum.clamp(min=1.0)
     box = sum_box / target_scores_sum * gain_box
     cls = sum_cls / target_scores_sum * gain_cls

@@ -2,17 +2,28 @@
 
     python -m snn_object_detectionddp_tpu_torch.main --config config.yaml
 
-The port's counterpart of the JAX package's ``main.py``, on one card:
-``mode: train`` builds the DSEC index, the seeded sequence split (and the
-debug subset), a shuffled train loader that drops a trailing partial batch
-and a padded validation loader, and trains through ``train/loop.py`` with
-checkpoints under ``training.save_dir`` (``resume_training`` continues
-from ``training.weights_path``). ``mode: test`` and ``mode: eval`` run the
-mAP evaluation of :mod:`.eval_2`. ``--config`` needs PyYAML.
+    python -m torch.distributed.run --standalone --nproc_per_node N \
+        -m snn_object_detectionddp_tpu_torch.main --config config.yaml
 
-Not ported, each raising with the ROADMAP item that ports it: data,
-spatial or tensor parallelism and FSDP (``mesh.*``), NaN debugging
-(``runtime.debug_nans``) and ``mode: visualize``.
+The port's counterpart of the JAX package's ``main.py``: ``mode: train``
+builds the DSEC index, the seeded sequence split (and the debug subset), a
+shuffled train loader that drops a trailing partial batch and a padded
+validation loader, and trains through ``train/loop.py`` with checkpoints
+under ``training.save_dir`` (``resume_training`` continues from
+``training.weights_path``). ``mode: test`` and ``mode: eval`` run the mAP
+evaluation of :mod:`.eval_2`. The config is read without PyYAML
+(utils/yaml_subset.py).
+
+Data parallelism: launched by torchrun (or with ``mesh.coordinator`` /
+``num_processes`` / ``process_id``, as the JAX package is), every process
+runs on ``cuda:LOCAL_RANK``, feeds its own shard of the sample lists and
+``training.batch_size / world`` samples a step, and rank 0 writes the
+checkpoints (parallel/mesh.py).
+
+Not ported, each raising with the ROADMAP item that ports it: FSDP,
+spatial and tensor parallelism (``mesh.fsdp``, ``mesh.spatial``,
+``mesh.tensor``), NaN debugging (``runtime.debug_nans``) and ``mode:
+visualize``.
 """
 
 from __future__ import annotations
@@ -25,26 +36,32 @@ import torch
 
 from .data.dsec import DSECIndex, apply_train_debug, train_val_split
 from .data.pipeline import BatchLoader
+from .parallel.mesh import (
+    host_shard_indices,
+    is_main_process,
+    local_batch_size,
+    make_mesh,
+    maybe_init_distributed,
+    pad_batch_to_devices,
+    process_device,
+    refuse_unported_axes,
+)
 from .train.checkpoint import load_backbone_params, resume_or_init
 from .train.loop import train_loop
 from .train.param_groups import make_grouped_optimizer
-from .train.step import init_state, make_optimizer, make_step_fns, module_frozen_mask
+from .train.step import (
+    init_state,
+    make_optimizer,
+    make_step_fns,
+    module_frozen_mask,
+)
 
 
 def _check_ported(cfg) -> None:
-    m = cfg.mesh
-    if m.tensor > 1:
-        raise NotImplementedError(
-            "mesh.tensor > 1 (tensor parallelism) is not ported: ROADMAP §1 item 2, parallelism"
-        )
-    if m.data > 1 or m.spatial > 1 or m.fsdp:
-        raise NotImplementedError(
-            "mesh.data > 1, mesh.spatial > 1 and mesh.fsdp (multi-device training) are not "
-            "ported: ROADMAP §1 item 2, parallelism; this package trains on one card"
-        )
+    refuse_unported_axes(cfg.mesh, train=True)
     if cfg.runtime.debug_nans:
         raise NotImplementedError(
-            "runtime.debug_nans is not ported: ROADMAP §1 item 3, side pipelines (utils/debug.py)"
+            "runtime.debug_nans is not ported: ROADMAP §1 item 4, side pipelines (utils/debug.py)"
         )
 
 
@@ -52,15 +69,24 @@ def train_code(cfg, detector) -> dict:
     """Train ``detector`` on the DSEC directory that ``cfg`` names; returns
     the final train state."""
     _check_ported(cfg)
+    mesh = make_mesh(cfg.mesh.data)
     save_dir = Path(cfg.training.save_dir)
-    save_dir.mkdir(parents=True, exist_ok=True)
+    if is_main_process():
+        save_dir.mkdir(parents=True, exist_ok=True)
 
     index = DSECIndex(cfg, "train")
     train_idx, val_idx = train_val_split(index, seed=cfg.training.seed)
     train_idx, val_idx = apply_train_debug(train_idx, val_idx, cfg.debug_train)
+    # Every process feeds its own shard of the sample lists.
+    train_idx, val_idx = host_shard_indices(train_idx), host_shard_indices(val_idx)
 
     tr = cfg.training
-    loader_kw = dict(batch_size=tr.batch_size, max_boxes=cfg.model.max_boxes,
+    # The batch axis tiles over the data mesh.
+    n_dev, bs = mesh.size, tr.batch_size
+    if bs % n_dev:
+        bs = pad_batch_to_devices(bs, n_dev)
+        print(f"Rounding batch_size up to {bs} (multiple of {n_dev} devices)")
+    loader_kw = dict(batch_size=local_batch_size(bs), max_boxes=cfg.model.max_boxes,
                      num_threads=tr.num_workers, prefetch=cfg.runtime.prefetch)
     train_loader = BatchLoader(index, train_idx, shuffle=True, seed=tr.seed, drop_last=True,
                                **loader_kw)
@@ -88,7 +114,7 @@ def train_code(cfg, detector) -> dict:
         tx, schedule = make_optimizer(tr.learning_rate, total_steps, **opt_kw)
     fns = make_step_fns(
         detector, tx, schedule, remat=tr.remat, remat_chunk=tr.remat_chunk or None,
-        grad_accum=tr.grad_accum_steps or 1, remat_policy=tr.remat_policy,
+        grad_accum=tr.grad_accum_steps or 1, remat_policy=tr.remat_policy, mesh=mesh,
     )
 
     def fresh_init():
@@ -112,7 +138,7 @@ def train_code(cfg, detector) -> dict:
 
 def visualize_code(cfg, detector) -> None:
     raise NotImplementedError(
-        "mode 'visualize' is not ported (viz/overlay.py): ROADMAP §1 item 3, side pipelines"
+        "mode 'visualize' is not ported (viz/overlay.py): ROADMAP §1 item 4, side pipelines"
     )
 
 
@@ -139,7 +165,10 @@ def main(argv=None):
     from .models.detector import Detector
 
     cfg = load_config(args.config)
-    return run(cfg, Detector.from_config(cfg))
+    # A distributed launch joins its process group before anything else
+    # touches the card (the JAX main.py's order).
+    maybe_init_distributed(cfg)
+    return run(cfg, Detector.from_config(cfg, device=process_device()))
 
 
 if __name__ == "__main__":

@@ -49,8 +49,12 @@ import numpy as np
 import torch
 
 from .data.encoding import preprocess_video
+from .data.png import SIGNATURE as PNG_SIGNATURE
+from .data.png import decode_png
+from .data.resize import resize_linear_u8
 from .models.detect import decode_predictions
 from .ops.nms import batched_nms
+from .parallel.mesh import refuse_unported_axes
 
 
 def tree_map(fn, *trees):
@@ -450,9 +454,38 @@ class DetectionService:
         })
 
 
-def make_handler(service: DetectionService):
-    import cv2
+class _BadUpload(ValueError):
+    """An upload the handler answers with 400."""
 
+
+def decode_upload(data: bytes, image_hw: tuple[int, int]) -> np.ndarray:
+    """One uploaded image -> (H, W, 3) uint8 RGB at the served size.
+
+    PNG (told by its 8-byte signature) goes through the port's decoder
+    (data/png.py) and OpenCV's INTER_LINEAR arithmetic (data/resize.py): no
+    OpenCV needed. Any other format is decoded by ``cv2.imdecode``, imported
+    here only; without OpenCV it is refused with a message naming it."""
+    if data[:8] == PNG_SIGNATURE:
+        try:
+            rgb = decode_png(data, "uploaded PNG")
+        except ValueError as e:
+            raise _BadUpload(f"undecodable image: {e}") from None
+    else:
+        try:
+            import cv2
+        except ImportError:
+            raise _BadUpload("non-PNG upload: its decoder is OpenCV (cv2), which is not "
+                             "installed here; send PNG") from None
+        bgr = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)
+        if bgr is None:
+            raise _BadUpload("undecodable image")
+        rgb = bgr[:, :, ::-1]
+    if rgb.shape[:2] != tuple(image_hw):
+        rgb = resize_linear_u8(rgb, image_hw)
+    return np.ascontiguousarray(rgb)
+
+
+def make_handler(service: DetectionService):
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, *a):  # quiet
             pass
@@ -484,31 +517,24 @@ def make_handler(service: DetectionService):
                 if self.path != "/detect":
                     self._json(404, {"error": "unknown path"})
                     return
-                h, w = service.image_hw
 
                 def decode_one(b64):
-                    bgr = cv2.imdecode(
-                        np.frombuffer(base64.b64decode(b64), np.uint8),
-                        cv2.IMREAD_COLOR,
-                    )
-                    if bgr is None:
-                        return None
-                    if bgr.shape[:2] != (h, w):
-                        bgr = cv2.resize(bgr, (w, h))
-                    return bgr[:, :, ::-1]
+                    return decode_upload(base64.b64decode(b64), service.image_hw)
 
-                if "images" in req:  # clip: consecutive frames, one call
-                    imgs = [decode_one(b) for b in req["images"]]
-                    if not imgs or any(i is None for i in imgs):
-                        self._json(400, {"error": "undecodable image in clip"})
-                        return
-                    out = service.detect_clip(stream, np.stack(imgs))
+                try:
+                    if "images" in req:  # clip: consecutive frames, one call
+                        if not req["images"]:
+                            raise _BadUpload("empty clip")
+                        clip = np.stack([decode_one(b) for b in req["images"]])
+                    else:
+                        rgb = decode_one(req["image"])
+                except _BadUpload as e:
+                    self._json(400, {"error": str(e)})
+                    return
+                if "images" in req:
+                    out = service.detect_clip(stream, clip)
                 else:
-                    rgb = decode_one(req["image"])
-                    if rgb is None:
-                        self._json(400, {"error": "undecodable image"})
-                        return
-                    out = service.detect(stream, rgb.copy())
+                    out = service.detect(stream, rgb)
                 self._json(200, out)
             except Exception as e:
                 self._json(500, {"error": f"{type(e).__name__}: {e}"})
@@ -516,33 +542,58 @@ def make_handler(service: DetectionService):
     return Handler
 
 
-def serve(cfg, weights: str | None, port: int = 8000, max_batch: int = 8,
-          max_clip: int = 8, device: str = "cuda"):
-    """Load the detector (a flax msgpack checkpoint through convert.py, or
-    a seeded random init) and serve it over HTTP until interrupted."""
+def load_weights(detector, weights: str):
+    """Parameters from ``weights`` on the detector's device, the reader
+    chosen by the file's content: a ``torch.save`` zip (``PK\\x03\\x04``,
+    a checkpoint of this package's trainer, train/checkpoint.py) or else a
+    flax msgpack file of the JAX package (convert.py)."""
+    with open(weights, "rb") as f:
+        magic = f.read(4)
+    if magic == b"PK\x03\x04":
+        from .train.checkpoint import load_checkpoint
+
+        # The skeleton's meta parameters give structure and shapes only.
+        template = {"params": dict(detector.module.named_parameters())}
+        packed = load_checkpoint(weights, template, detector.device)
+        print(f"loaded {weights} (epoch {packed['epoch']})", flush=True)
+        return packed["state"]["params"]
     from .convert import load_flax_params, params_from_jax
+
+    params = params_from_jax(load_flax_params(weights), detector.device)
+    print(f"loaded {weights}", flush=True)
+    return params
+
+
+def serve(cfg, weights: str | None, port: int = 8000, max_batch: int = 8,
+          max_clip: int = 8, device: str = "cuda", on_ready=None):
+    """Load the detector (a checkpoint of this package or a flax msgpack
+    file, :func:`load_weights`; else a seeded random init) and serve it over
+    HTTP until interrupted. ``on_ready(httpd, service)``, when given, is
+    called once the server listens (``port=0`` picks a free port, which
+    ``httpd.server_address`` names); ``httpd.shutdown()`` from another
+    thread ends the call."""
     from .models.detector import Detector
 
-    if cfg.mesh.tensor > 1:
-        raise NotImplementedError(
-            "tensor-parallel serving (mesh.tensor > 1) is not ported yet; "
-            "set mesh.tensor: 1"
-        )
+    refuse_unported_axes(cfg.mesh, train=False)
     detector = Detector.from_config(cfg, device=device)
     if weights:
-        params = params_from_jax(load_flax_params(weights), detector.device)
-        print(f"loaded {weights}", flush=True)
+        params = load_weights(detector, weights)
     else:
         params = detector.init_params(torch.Generator().manual_seed(0))
         print("WARNING: serving a fresh random init (no --weights)", flush=True)
     service = DetectionService(detector, params, max_batch=max_batch,
                                max_clip=max_clip).start()
-    print("warming up serving shapes...", flush=True)
-    service.warmup()
-    httpd = ThreadingHTTPServer(("0.0.0.0", port), make_handler(service))
-    print(f"serving on :{port} (device={detector.device})", flush=True)
     try:
-        httpd.serve_forever()
+        print("warming up serving shapes...", flush=True)
+        service.warmup()
+        httpd = ThreadingHTTPServer(("0.0.0.0", port), make_handler(service))
+        print(f"serving on :{httpd.server_address[1]} (device={detector.device})", flush=True)
+        if on_ready is not None:
+            on_ready(httpd, service)
+        try:
+            httpd.serve_forever()
+        finally:
+            httpd.server_close()
     finally:
         service.stop()
 

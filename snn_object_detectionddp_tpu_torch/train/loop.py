@@ -6,6 +6,12 @@ functions (train/step.py). Step k's metrics are fetched one iteration LATE
 never sits between a step and the next batch's host preparation and upload
 (the progress display therefore lags one step).
 
+Data-parallel runs (one process per card, parallel/mesh.py): the metrics
+are global-batch values, identical on every process, so every process
+makes the same best / latest decisions and keeps its collectives in
+lockstep, while only rank 0 writes event files, spike rates and
+checkpoints (other processes get a ``NullWriter``).
+
 A loader is any sized iterable of batch dicts: ``images`` (B, T, H, W, 3)
 uint8, ``labels`` (B, M, 5), ``label_mask`` (B, M), optionally
 ``sample_mask`` (B,); numpy arrays or tensors.
@@ -19,7 +25,8 @@ import numpy as np
 import torch
 
 from ..data.encoding import preprocess_video
-from ..utils.logging import MetricsLogger, make_writer
+from ..parallel.mesh import is_main_process
+from ..utils.logging import MetricsLogger, NullWriter, make_writer
 from ..utils.pipelining import DelayedFetch
 from .checkpoint import AsyncCheckpointer, tree_map
 from .step import TrainStepFns
@@ -103,8 +110,10 @@ def train_loop(
     detector=None,
 ) -> dict:
     save_dir = Path(save_dir)
-    save_dir.mkdir(parents=True, exist_ok=True)
-    writer = make_writer(save_dir)
+    main = is_main_process()
+    if main:
+        save_dir.mkdir(parents=True, exist_ok=True)
+    writer = make_writer(save_dir) if main else NullWriter()
     logger = MetricsLogger(writer)
     ckptr = AsyncCheckpointer()
 
@@ -123,26 +132,30 @@ def train_loop(
                      schedule(state["step"]))
 
         # SNN observability: per-layer firing rates on one val batch,
-        # reusing the batch validation already fetched.
-        if detector is not None and first_val_batch is not None:
+        # reusing the batch validation already fetched. Rank 0 only: the
+        # pass runs the forward alone, no collective.
+        if main and detector is not None and first_val_batch is not None:
             images = torch.as_tensor(first_val_batch["images"]).to(detector.device)
             frames = preprocess_video(images, dtype=detector.dtype)
             for name, rate in detector.spike_rates(state["params"], frames).items():
                 writer.add_scalar(f"SpikeRates/{name}", rate, epoch)
 
+        # val_loss is the global loss, the same on every process: every
+        # process takes the same branch.
         if val_loss < best_val_loss:
             best_val_loss = val_loss
             # Exact best state, cloned on the device (the next train step
             # updates the live state in place); written out on the next
             # scheduled write, so best.pt fidelity does not depend on the
             # write cadence.
-            best_snap = (tree_map(lambda t: t.detach().clone(), state), epoch)
+            if main:
+                best_snap = (tree_map(lambda t: t.detach().clone(), state), epoch)
             print(f"New best model (epoch {epoch + 1}), val loss {best_val_loss:.4f}")
 
         # Checkpoint writes every `save_every_epochs` (0 = final epoch
         # only). Async: the device-to-host copy must not stall training.
         cadence = getattr(cfg.training, "save_every_epochs", 1)
-        if epoch == epochs - 1 or (cadence and (epoch + 1) % cadence == 0):
+        if main and (epoch == epochs - 1 or (cadence and (epoch + 1) % cadence == 0)):
             latest = save_dir / "latest.pt"
             ckptr.save(state, epoch, best_val_loss, latest)
             if best_snap is not None:

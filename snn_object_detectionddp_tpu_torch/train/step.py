@@ -1,11 +1,15 @@
-"""Single-device train/eval steps.
+"""Train/eval steps, on one device or data-parallel over processes.
 
 One train step is: device-side preprocessing, the full T-step temporal
 forward under a gradient (on the card every spiking block runs the
 residual-saving LIF forward and the surrogate-BPTT backward kernels), the
 detection loss, then the optimizer — zero the frozen leaves' gradients,
 clip by the global norm (10.0), AdamW (weight decay 5e-4) at the OneCycle
-learning rate of this step.
+learning rate of this step. With a data mesh (parallel/mesh.py) every
+process computes the gradient of the GLOBAL-batch loss on its local batch
+and the gradients are summed across processes before the optimizer, so
+every process takes the step one device would take on the concatenated
+batch (the JAX package's shard_map branch).
 
 The train state is a plain dict::
 
@@ -35,6 +39,7 @@ from torch.utils.checkpoint import checkpoint
 
 from ..data.encoding import preprocess_video
 from ..losses.detection import DetectionLoss, LossComponents
+from ..parallel.mesh import DataMesh, all_reduce_grads, refuse_unported_axes
 from .schedule import onecycle_lr
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -171,15 +176,6 @@ class TrainStepFns(NamedTuple):
     grads: Callable  # (params, batch) -> ({name: gradient}, LossComponents)
 
 
-def _check_single_device(cfg) -> None:
-    m = cfg.mesh
-    if m.spatial > 1 or m.fsdp or m.tensor > 1:
-        raise NotImplementedError(
-            "mesh.spatial > 1, mesh.fsdp and mesh.tensor > 1 are not ported: "
-            "this package trains on one device"
-        )
-
-
 def make_step_fns(
     detector,
     tx: Optimizer,
@@ -188,6 +184,7 @@ def make_step_fns(
     remat_chunk: int | None = None,
     grad_accum: int = 1,
     remat_policy: str | None = None,
+    mesh: DataMesh | None = None,
 ) -> TrainStepFns:
     """Step functions bound to a Detector + optimizer; they run on the
     detector's device (batches may arrive as numpy arrays or tensors on any
@@ -211,6 +208,13 @@ def make_step_fns(
 
     ``remat_policy="save_conv"`` (keep the conv outputs, recompute the
     elementwise chain) is not ported and raises.
+
+    ``mesh``: a data mesh (parallel/mesh.py::make_mesh). Each process feeds
+    its local batch; the loss is the global-batch loss, gradients are summed
+    across processes before the frozen-leaf zeroing, the clip and AdamW,
+    and ``eval_step`` reports the global loss. With ``grad_accum`` each
+    process splits its local batch into microbatches, and microbatch ``i``
+    is normalised over the ``i``-th microbatches of all processes together.
     """
     if remat_policy == "save_conv":
         raise NotImplementedError(
@@ -219,7 +223,7 @@ def make_step_fns(
     if remat_policy not in (None, "", "full"):
         raise ValueError(f"unknown remat_policy '{remat_policy}' (full|save_conv)")
     cfg = detector.cfg
-    _check_single_device(cfg)
+    refuse_unported_axes(cfg.mesh, train=True)
     dev = detector.device
     loss_fn = DetectionLoss(cfg.model.num_classes, cfg.model.hyp)
     # Honor runtime.precision end-to-end: preprocessing emits the model's
@@ -268,7 +272,7 @@ def make_step_fns(
         frames = preprocess_video(batch["images"], dtype=in_dtype)
         return loss_fn(
             maps_of(params, frames), batch["labels"], batch["label_mask"],
-            sample_mask=batch.get("sample_mask"),
+            sample_mask=batch.get("sample_mask"), cross_replica_axis=mesh,
         )
 
     def _grads_of(params, batch):
@@ -304,6 +308,9 @@ def make_step_fns(
             lc = lc._replace(box=lc.box / k, cls=lc.cls / k, dfl=lc.dfl / k)
         else:
             grads, lc = _grads_of(params, batch)
+        # Each process holds d(global loss)/d(params) over its own batch:
+        # their sum is the whole gradient.
+        grads = all_reduce_grads(grads, mesh)
         sched = state["sched"]
         lr = onecycle_lr(state["step"], *sched)
         grad_norm = global_norm(grads.values())
@@ -329,7 +336,8 @@ def make_step_fns(
         return detector.apply(params, frames_t, rec_state)
 
     def grads(params: dict, batch: dict):
-        return _grads_of(params, _to_device(batch))
+        g, lc = _grads_of(params, _to_device(batch))
+        return all_reduce_grads(g, mesh), lc
 
     return TrainStepFns(train_step=train_step, eval_step=eval_step, forward=forward,
                         grads=grads)

@@ -11,7 +11,8 @@ driven on the CPU with a tiny model over DSEC-shaped trees.
   the same fp32 math but sum convs in another order (~1e-6 relative),
   which can swap two detections of nearly equal score: the results dict
   is held to ``RESULT_ATOL`` = 5e-3, as tests/test_torch_eval.py does.
-- what is not ported raises, naming the ROADMAP item that ports it.
+- what is not ported raises, naming the ROADMAP item that ports it; a
+  data axis larger than the world raises ValueError.
 """
 
 import jax
@@ -29,6 +30,7 @@ from snn_object_detectionddp_tpu_torch.convert import params_from_jax
 from snn_object_detectionddp_tpu_torch.data.synthetic import make_dataset
 from snn_object_detectionddp_tpu_torch.evals import validator as tval
 from snn_object_detectionddp_tpu_torch.models.detector import Detector
+from snn_object_detectionddp_tpu_torch.parallel.mesh import make_mesh
 from snn_object_detectionddp_tpu_torch.train.checkpoint import save_checkpoint
 
 RESULT_ATOL = 5e-3
@@ -170,36 +172,50 @@ def _set(path, value):
     return apply
 
 
+# What stays unported raises, naming its ROADMAP item. mesh.data is ported:
+# on a one-process run, a data axis of 2 exceeds the world and raises
+# ValueError naming the world size.
 UNPORTED = {
-    "mesh_tensor": (_set("mesh.tensor", 2), "item 2, parallelism"),
-    "mesh_data": (_set("mesh.data", 2), "item 2, parallelism"),
-    "mesh_spatial": (_set("mesh.spatial", 2), "item 2, parallelism"),
-    "mesh_fsdp": (_set("mesh.fsdp", True), "item 2, parallelism"),
-    "debug_nans": (_set("runtime.debug_nans", True), "item 3, side pipelines"),
-    "visualize": (_set("mode", "visualize"), "item 3, side pipelines"),
+    "mesh_tensor": (_set("mesh.tensor", 2), NotImplementedError, r"item 3 \(e\), tensor"),
+    "mesh_data": (_set("mesh.data", 2), ValueError, "world size of 1"),
+    "mesh_spatial": (_set("mesh.spatial", 2), NotImplementedError, r"item 3 \(d\), spatial"),
+    "mesh_fsdp": (_set("mesh.fsdp", True), NotImplementedError, r"item 3 \(c\), FSDP"),
+    "debug_nans": (_set("runtime.debug_nans", True), NotImplementedError,
+                   "item 4, side pipelines"),
+    "visualize": (_set("mode", "visualize"), NotImplementedError, "item 4, side pipelines"),
 }
 
 
 @pytest.mark.parametrize("case", list(UNPORTED))
 def test_unported_branches_raise(tree, tmp_path, case):
-    change, match = UNPORTED[case]
+    change, error, match = UNPORTED[case]
     cfg = _tiny(tconfig, tree, tmp_path / "run")
     det = Detector.from_config(cfg, device="cpu")
     change(cfg)
-    with pytest.raises(NotImplementedError, match=match):
+    with pytest.raises(error, match=match):
         main.run(cfg, det)
     assert not (tmp_path / "run" / "latest.pt").exists()
 
 
 def test_evaluation_on_several_devices_raises(tree, tmp_path):
+    """Evaluation takes a data mesh (two processes:
+    tests/test_torch_parallel.py); a data axis larger than the world, a
+    spatial and a tensor axis raise."""
     cfg = _tiny(tconfig, tree, tmp_path / "run")
     det = Detector.from_config(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tval.evaluate_model(cfg, det, {}, mesh=object())
+    params = det.init_params(torch.Generator().manual_seed(0))
+    assert (tval.evaluate_model(cfg, det, params, mesh=make_mesh())
+            == tval.evaluate_model(cfg, det, params))
     cfg.mesh.data = 4
-    with pytest.raises(NotImplementedError, match="parallelism"):
+    with pytest.raises(ValueError, match="world size of 1"):
         eval_2.evaluate(cfg, device="cpu")
-    cfg.mesh.data, cfg.mode = 1, "serve"
+    cfg.mesh.data, cfg.mesh.spatial = -1, 2
+    with pytest.raises(NotImplementedError, match=r"item 3 \(d\), spatial"):
+        eval_2.evaluate(cfg, device="cpu")
+    cfg.mesh.spatial, cfg.mesh.tensor = 1, 2
+    with pytest.raises(NotImplementedError, match=r"item 3 \(e\), tensor"):
+        eval_2.evaluate(cfg, device="cpu")
+    cfg.mesh.tensor, cfg.mode = 1, "serve"
     with pytest.raises(ValueError, match="unknown mode"):
         main.run(cfg, det)
 

@@ -45,6 +45,7 @@ from snn_object_detectionddp_tpu_torch.convert import load_flax_params, params_f
 from snn_object_detectionddp_tpu_torch.evals import map as tmap
 from snn_object_detectionddp_tpu_torch.evals import validator as tval
 from snn_object_detectionddp_tpu_torch.models.detector import Detector as TDetector
+from snn_object_detectionddp_tpu_torch.parallel.mesh import make_mesh
 
 REPO = Path(__file__).resolve().parents[1]
 RESULT_ATOL = 5e-3
@@ -255,14 +256,10 @@ def test_entry_points_and_unported_paths():
     cfg = tconfig.Config()
     cfg.model.yolo_model_name, cfg.model.width_mult = "yolo11n.pt", 0.25
     det = TDetector.from_config(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tval.make_predict_fn(det, mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tval.evaluate_batches(det, {}, [], mesh=object())
-    # evaluate_model reads a DSEC directory (tests/test_torch_cli.py); only
-    # its mesh argument is refused.
-    with pytest.raises(NotImplementedError, match="mesh"):
-        tval.evaluate_model(cfg, det, {}, mesh=object())
+    # The mesh argument is a data mesh (several processes:
+    # tests/test_torch_parallel.py); over one process it changes nothing.
+    mesh = make_mesh()
+    assert tval.evaluate_batches(det, {}, [], mesh=mesh) == tval.evaluate_batches(det, {}, [])
     assert (tval.EVAL_CONF, tval.EVAL_IOU, tval.EVAL_MAX_DET, tval.EVAL_PRE_NMS_TOPK) == (
         jval.EVAL_CONF, jval.EVAL_IOU, jval.EVAL_MAX_DET, jval.EVAL_PRE_NMS_TOPK)
     # no batches: the empty results dict, as DetMetrics gives it

@@ -24,6 +24,7 @@ from snn_object_detectionddp_tpu_torch.losses import detection as tdl
 from snn_object_detectionddp_tpu_torch.losses import tal as ttal
 from snn_object_detectionddp_tpu_torch.ops import anchors as tanc
 from snn_object_detectionddp_tpu_torch.ops import boxes as tbox
+from snn_object_detectionddp_tpu_torch.parallel.mesh import make_mesh
 
 T = torch.from_numpy
 
@@ -301,6 +302,11 @@ def test_detection_loss_class_and_cross_replica():
     lc_j = jdl.DetectionLoss(NC, Hyp)([jnp.asarray(r) for r in raw], jnp.asarray(labels),
                                       jnp.asarray(mask))
     np.testing.assert_allclose(float(lc_t.total), float(lc_j.total), rtol=1e-5)
-    with pytest.raises(NotImplementedError, match="cross_replica_axis"):
+    # The cross-replica axis is a data mesh; over one process (no group)
+    # its sums are the identity. Several processes: tests/test_torch_parallel.py.
+    lc_m = tdl.DetectionLoss(NC, Hyp)([T(r) for r in raw], T(labels), T(mask),
+                                      cross_replica_axis=make_mesh())
+    assert all(torch.equal(a, b) for a, b in zip(lc_m, lc_t))
+    with pytest.raises(TypeError, match="DataMesh"):
         tdl.DetectionLoss(NC, Hyp)([T(r) for r in raw], T(labels), T(mask),
                                    cross_replica_axis="data")

@@ -3,7 +3,8 @@ csrc/png_unfilter.cpp) against OpenCV, which the JAX package decodes and
 writes its frames with, and against the plain numpy row filters.
 
 Every comparison is exact (uint8 pixels): ``read_rgb`` must give
-``cv2.imread(path)[..., ::-1]`` (IMREAD_COLOR: gray replicated, alpha
+``cv2.imread(path)[..., ::-1]`` (and ``decode_png`` of the bytes
+``cv2.imdecode(data, IMREAD_COLOR)[..., ::-1]``) (IMREAD_COLOR: gray replicated, alpha
 dropped, palette looked up) on every kind of 8-bit PNG it accepts, and the
 compiled unfilter the bytes of ``unfilter_reference``.
 """
@@ -81,6 +82,28 @@ def test_read_rgb_equals_cv2_on_cv2_files(tmp_path, kind, hw):
     assert got.dtype == np.uint8 and got.shape == (*hw, 3) and got.flags.c_contiguous
     np.testing.assert_array_equal(got, _cv2_rgb(path))
     assert png.png_shape(path) == hw
+
+
+@pytest.mark.parametrize("kind", ["rgb", "gray", "rgba"])
+@pytest.mark.parametrize("hw", [(31, 45), (48, 64)], ids=["odd", "even"])
+def test_decode_png_equals_cv2_imdecode(kind, hw):
+    """Bytes in memory (an HTTP upload): ``decode_png`` gives the pixels of
+    ``cv2.imdecode(data, IMREAD_COLOR)`` in RGB order, exactly."""
+    rng = np.random.RandomState(hw[1])
+    shape = {"rgb": (*hw, 3), "gray": hw, "rgba": (*hw, 4)}[kind]
+    img = rng.randint(0, 256, shape, dtype=np.uint8)
+    img[:, : hw[1] // 3] //= 5
+    ok, buf = cv2.imencode(".png", img)
+    assert ok
+    data = buf.tobytes()
+    want = cv2.imdecode(np.frombuffer(data, np.uint8), cv2.IMREAD_COLOR)[..., ::-1]
+    got = png.decode_png(data)
+    assert got.dtype == np.uint8 and got.shape == (*hw, 3) and got.flags.c_contiguous
+    np.testing.assert_array_equal(got, want)
+    with pytest.raises(ValueError, match="upload: CRC"):
+        corrupt = bytearray(data)
+        corrupt[40] ^= 0xFF
+        png.decode_png(bytes(corrupt), "upload")
 
 
 @pytest.mark.parametrize("ft", range(5), ids=["none", "sub", "up", "average", "paeth"])
