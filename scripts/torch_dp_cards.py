@@ -47,7 +47,7 @@ sys.path.insert(0, str(REPO))
 
 import chip_smoke as cs  # noqa: E402
 from snn_object_detectionddp_tpu_torch.config import Config  # noqa: E402
-from snn_object_detectionddp_tpu_torch.models.detector import Detector  # noqa: E402
+from snn_object_detectionddp_tpu_torch.models.detector import Detector, set_tf32_policy  # noqa: E402
 from snn_object_detectionddp_tpu_torch.models.layers import SpikingConvBlock  # noqa: E402
 from snn_object_detectionddp_tpu_torch.parallel import mesh as pmesh  # noqa: E402
 from snn_object_detectionddp_tpu_torch.train.step import (  # noqa: E402
@@ -186,8 +186,7 @@ def main() -> None:
     if not args.cpu and not torch.cuda.is_available():
         sys.exit("torch_dp_cards.py needs CUDA cards (or --cpu)")
     if not args.cpu:
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
+        set_tf32_policy("f32")
     device = "cpu" if args.cpu else "cuda"
     if not pmesh.maybe_init_distributed(Config(), device=device):
         sys.exit("launch with torch.distributed.run (torchrun)")

@@ -19,6 +19,10 @@ stores fp16 to stay small).
 
 A train state (:func:`train_state_from_jax`) carries the AdamW moments
 ``mu``/``nu`` in the params' tree layout, so the same rules convert them.
+
+Flax files are read by :mod:`.utils.msgpack_subset`, without the ``msgpack``
+package; :func:`load_weights` reads either a flax file or a checkpoint of
+this package's trainer, telling them apart by content.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+from .utils import msgpack_subset
 
 _RENAME = {
     ("Conv_0", "kernel"): "weight",
@@ -108,16 +114,7 @@ def train_state_from_jax(state_dict: dict, device: str | torch.device = "cuda") 
 
 
 def _read_flax(path: str | Path) -> dict:
-    try:
-        import msgpack
-    except ImportError as e:
-        raise ImportError(
-            "load_flax_params needs the 'msgpack' package to read flax "
-            "checkpoints; install it or convert the checkpoint elsewhere"
-        ) from e
-
-    return msgpack.unpackb(Path(path).read_bytes(), ext_hook=_ext_hook, raw=False,
-                           strict_map_key=False)
+    return msgpack_subset.unpackb(Path(path).read_bytes(), ext_hook=_ext_hook)
 
 
 def load_flax_params(path: str | Path) -> dict:
@@ -151,10 +148,29 @@ _EXT_NDARRAY, _EXT_NPSCALAR = 1, 3
 def _ext_hook(code: int, data: bytes):
     """Decode flax's msgpack extensions: an ndarray or numpy scalar is
     packed as (shape, dtype name, raw bytes)."""
-    import msgpack
-
     if code not in (_EXT_NDARRAY, _EXT_NPSCALAR):
         raise ValueError(f"unsupported msgpack extension {code} in a flax checkpoint")
-    shape, dtype_name, buf = msgpack.unpackb(data, raw=True)
+    shape, dtype_name, buf = msgpack_subset.unpackb(data, raw=True)
     arr = np.frombuffer(buf, dtype=np.dtype(dtype_name.decode())).reshape(shape)
     return arr[()] if code == _EXT_NPSCALAR else arr
+
+
+def load_weights(detector, weights: str | Path) -> dict[str, torch.Tensor]:
+    """Parameters from ``weights`` on the detector's device, the reader
+    chosen by the file's content: a ``torch.save`` zip (``PK\\x03\\x04``,
+    a checkpoint of this package's trainer, train/checkpoint.py) or else a
+    flax msgpack file of the JAX package (``fixtures/hard_nano_ckpt.pt``, a
+    JAX ``best.pt``)."""
+    with open(weights, "rb") as f:
+        magic = f.read(4)
+    if magic == b"PK\x03\x04":
+        from .train.checkpoint import load_checkpoint
+
+        # The skeleton's meta parameters give structure and shapes only.
+        template = {"params": dict(detector.module.named_parameters())}
+        packed = load_checkpoint(weights, template, detector.device)
+        print(f"Loaded checkpoint {weights} (epoch {packed['epoch']})", flush=True)
+        return packed["state"]["params"]
+    params = params_from_jax(load_flax_params(weights), detector.device)
+    print(f"Loaded flax checkpoint {weights}", flush=True)
+    return params

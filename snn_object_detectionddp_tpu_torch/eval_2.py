@@ -3,9 +3,11 @@
     python -m snn_object_detectionddp_tpu_torch.eval_2 --config config.yaml [--weights best.pt]
 
 The port's counterpart of the JAX package's ``eval_2.py``: load ``best.pt``
-(this package's checkpoint format, ``train/checkpoint.py``) or the given
-weights, rebuild the seeded validation split, run the recurrent model, NMS
-(conf 0.001, iou 0.6, 300 detections) and print the DetMetrics results.
+or the given weights (this package's checkpoint format,
+``train/checkpoint.py``, or a flax file of the JAX package such as
+``fixtures/hard_nano_ckpt.pt``: ``convert.load_weights``), rebuild the
+seeded validation split, run the recurrent model, NMS (conf 0.001, iou
+0.6, 300 detections) and print the DetMetrics results.
 With no checkpoint it warns and evaluates a fresh initialisation. Runs on
 the card; the config is read without PyYAML. Launched by torchrun on N
 processes, each evaluates its share of the windows on ``cuda:LOCAL_RANK``
@@ -20,15 +22,15 @@ from pathlib import Path
 
 import torch
 
+from .convert import load_weights
 from .evals.validator import evaluate_model
-from .models.detector import Detector
+from .models.detector import Detector, set_tf32_policy
 from .parallel.mesh import (
     make_mesh,
     maybe_init_distributed,
     process_device,
     refuse_unported_axes,
 )
-from .train.checkpoint import load_checkpoint
 
 
 def evaluate(cfg, weights: str | None = None, device: str | torch.device = "cuda") -> dict:
@@ -41,12 +43,8 @@ def evaluate(cfg, weights: str | None = None, device: str | torch.device = "cuda
     mesh = make_mesh(cfg.mesh.data)
     weights_path = Path(weights) if weights else Path(cfg.training.save_dir) / "best.pt"
     if weights_path.exists():
-        # The template gives structure and shapes only: the skeleton's
-        # parameters live on the meta device.
-        template = {"params": dict(detector.module.named_parameters())}
-        packed = load_checkpoint(weights_path, template, detector.device)
-        params = packed["state"]["params"]
-        print(f"Loaded checkpoint {weights_path} (epoch {packed['epoch']})")
+        # a checkpoint of this package or a flax file of the JAX package
+        params = load_weights(detector, weights_path)
     else:
         params = detector.init_params(torch.Generator().manual_seed(0))
         print(f"WARNING: no checkpoint at {weights_path}; evaluating fresh init.")
@@ -63,6 +61,7 @@ def main(argv=None) -> dict:
     from .config import load_config
 
     cfg = load_config(args.config)
+    set_tf32_policy(cfg.runtime.precision)
     maybe_init_distributed(cfg)
     return evaluate(cfg, args.weights, device=process_device())
 

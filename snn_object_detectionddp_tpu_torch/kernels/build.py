@@ -3,8 +3,10 @@
 Each source becomes one shared library with a plain C interface, built
 into ``build/kernels/`` at first use (a few seconds) and loaded with
 ``ctypes``: a CUDA source (``.cu``) by ``nvcc`` for ``sm_90a``, a host C++
-source (``.cpp``, the PNG row filters of ``data/png.py``) by the host C++
-compiler (``$CXX``, else ``g++``). The library's name carries a hash of
+source (``.cpp``: the PNG row filters of ``data/png.py``, the raster
+primitives of ``data/raster.py``) by the host C++ compiler (``$CXX``, else
+``g++``), without fused multiply-add contraction so that its float
+arithmetic is the one the source spells out. The library's name carries a hash of
 the source, of the headers it includes from ``csrc/`` and of the compiler
 flags, so an edited source is rebuilt and a stale library is never loaded.
 Nothing is fetched or prebuilt: the repository's sources are the only
@@ -31,10 +33,10 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
 )
-CXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC")
+CXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-ffp-contract=off")
 # Headers under csrc/ that the CUDA sources include: part of their hash.
 HEADERS = ("lif_common.cuh",)
-SOURCES = ("affine_lif.cu", "lif_scan.cu", "png_unfilter.cpp")
+SOURCES = ("affine_lif.cu", "lif_scan.cu", "png_unfilter.cpp", "raster.cpp")
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -56,7 +58,7 @@ def nvcc() -> str:
 def cxx() -> str:
     found = shutil.which(os.environ.get("CXX") or "g++")
     if found is None:
-        raise RuntimeError("no host C++ compiler found (set CXX): the PNG row filters cannot be built")
+        raise RuntimeError("no host C++ compiler found (set CXX): the host sources cannot be built")
     return found
 
 

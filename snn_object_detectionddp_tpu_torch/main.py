@@ -162,9 +162,10 @@ def main(argv=None):
     if not torch.cuda.is_available():
         sys.exit("main needs a CUDA card (torch.cuda.is_available() is False)")
     from .config import load_config
-    from .models.detector import Detector
+    from .models.detector import Detector, set_tf32_policy
 
     cfg = load_config(args.config)
+    set_tf32_policy(cfg.runtime.precision)
     # A distributed launch joins its process group before anything else
     # touches the card (the JAX main.py's order).
     maybe_init_distributed(cfg)

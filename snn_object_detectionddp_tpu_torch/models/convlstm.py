@@ -50,7 +50,9 @@ class ConvLSTM2d(nn.Module):
         h_state, c_state = state
         h_seq = []
         for step in range(t):
-            h_gates = conv2d_nhwc(h_state.to(self.dtype), k_h)
+            # the hidden half's fp32 result feeds the fp32 gate sum unrounded;
+            # the input half was stored in the compute dtype (x_gates)
+            h_gates = conv2d_nhwc(h_state.to(self.dtype), k_h, f32_result=True)
             gates = x_gates[step].float() + h_gates.float() + self.gates_bias
             i, f, g, o = gates.chunk(4, -1)
             c_state = torch.sigmoid(f) * c_state + torch.sigmoid(i) * torch.tanh(g)

@@ -14,6 +14,7 @@ module itself is a parameter-free skeleton on the ``meta`` device, run with
 
 from __future__ import annotations
 
+import contextlib
 from dataclasses import dataclass
 
 import torch
@@ -55,6 +56,40 @@ class SNNTemporalDetector(nn.Module):
         if state_only:
             return None, new_state
         return self.head(list(refined)), new_state
+
+
+def set_tf32_policy(precision: str) -> None:
+    """Set PyTorch's TF32 switches for a process that runs ``precision``
+    (``runtime.precision``); the command lines (main, eval_2, serve) call it
+    before they build a model.
+
+    - ``"f32"``: cuDNN convs and CUDA matmuls in full fp32, no TF32.
+    - ``"bf16"``: cuDNN convs may use TF32. Every conv of this precision
+      that runs in fp32 takes bf16-valued operands (``conv2d_nhwc``'s
+      ``f32_result``), and TF32 holds a bf16 value exactly, so each product
+      is exact and only the summation order can differ. CUDA matmuls stay
+      full fp32: an fp32 matmul of operands that are not bf16-valued must
+      not round them.
+
+    The switches are global to the process, not to a thread: the serving
+    thread and the loader's threads see the same setting, so one process
+    runs one precision."""
+    if precision not in ("f32", "bf16"):
+        raise ValueError(f"precision must be 'f32' or 'bf16', got {precision!r}")
+    torch.backends.cudnn.allow_tf32 = precision == "bf16"
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+
+@contextlib.contextmanager
+def tf32_policy(precision: str):
+    """``set_tf32_policy(precision)`` inside a ``with`` block; the switches
+    are restored on leaving it (an fp32 check inside a bf16 process)."""
+    saved = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    set_tf32_policy(precision)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = saved
 
 
 def resolve_device(device: str | torch.device) -> torch.device:

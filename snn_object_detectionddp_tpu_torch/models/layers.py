@@ -69,10 +69,16 @@ def conv2d_nhwc(
     x: torch.Tensor,
     weight: torch.Tensor,
     stride: int = 1,
-    bias: torch.Tensor | None = None,
+    f32_result: bool = False,
 ) -> torch.Tensor:
     """SAME-padded 2D conv of an NHWC tensor with an OIHW kernel, computed
-    in x's dtype; returns an NHWC-contiguous tensor."""
+    in x's dtype; returns an NHWC-contiguous tensor. With ``f32_result``
+    the kernel is rounded to x's dtype and the conv runs on the fp32
+    values of both operands, returning fp32: "bf16 operands, f32
+    result", what the jitted JAX package computes where a bf16 conv feeds
+    an fp32 consumer. Each product of two bf16 values is exact in fp32 (and
+    in TF32), so only the summation order differs from a bf16 conv that
+    accumulates in fp32."""
     kh, kw = weight.shape[-2:]
     ph, pw = same_pads(x.shape[1], kh, stride), same_pads(x.shape[2], kw, stride)
     if ph[0] == ph[1] and pw[0] == pw[1]:
@@ -81,20 +87,25 @@ def conv2d_nhwc(
         x = F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
         padding = (0, 0)
     w = weight.to(dtype=x.dtype, memory_format=torch.channels_last)
-    bias = None if bias is None else bias.to(x.dtype)
-    y = F.conv2d(x.permute(0, 3, 1, 2), w, bias, stride, padding)
+    if f32_result:
+        x, w = x.float(), w.float()
+    y = F.conv2d(x.permute(0, 3, 1, 2), w, None, stride, padding)
     return y.permute(0, 2, 3, 1).contiguous()
 
 
 def group_norm_nhwc(
-    x: torch.Tensor, groups: int, scale: torch.Tensor, bias: torch.Tensor
+    x: torch.Tensor, groups: int, scale: torch.Tensor, bias: torch.Tensor,
+    stats: torch.Tensor,
 ) -> torch.Tensor:
     """flax ``nn.GroupNorm`` (eps 1e-6, one-pass variance) in fp32 on a
-    (B, H, W, C) tensor."""
+    (B, H, W, C) tensor. The group mean and variance come from ``stats``,
+    a tensor of x's shape (``x`` itself, or its rounding to the compute
+    dtype)."""
     n, h, w, c = x.shape
     xg = x.float().reshape(n, h * w, groups, c // groups)
-    mean = xg.mean((1, 3), keepdim=True)
-    mean2 = xg.square().mean((1, 3), keepdim=True)
+    sg = stats.float().reshape(n, h * w, groups, c // groups)
+    mean = sg.mean((1, 3), keepdim=True)
+    mean2 = sg.square().mean((1, 3), keepdim=True)
     var = (mean2 - mean.square()).clamp(min=0.0)
     mul = torch.rsqrt(var + GN_EPS) * scale.view(1, 1, groups, c // groups)
     y = (xg - mean) * mul + bias.view(1, 1, groups, c // groups)
@@ -140,13 +151,15 @@ class SpikingConvBlock(nn.Module):
                 with_readouts: bool = False):
         t, b = x_t.shape[:2]
         x = x_t.reshape((t * b,) + tuple(x_t.shape[2:])).to(self.dtype)
-        x = conv2d_nhwc(x, self.weight, self.stride)
+        # bf16: the group statistics read the conv's fp32 result, the LIF
+        # stage its bf16 rounding (the jitted JAX block's optimized HLO)
+        xf = conv2d_nhwc(x, self.weight, self.stride, f32_result=True)
+        x = xf.to(self.dtype)
         c = self.features
         groups = _num_groups(c)
         cg = c // groups
         # Reduce over (H, W) first, then fold channels into groups on the
         # tiny (T*B, C) sums — same op order as the JAX block.
-        xf = x.float()
         s1 = xf.sum((1, 2)).view(t * b, groups, cg).sum(2)
         s2 = xf.square().sum((1, 2)).view(t * b, groups, cg).sum(2)
         n = x.shape[1] * x.shape[2] * cg
@@ -194,8 +207,11 @@ class ConvBlock(nn.Module):
     init_param = SpikingConvBlock.init_param
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = conv2d_nhwc(x.to(self.dtype), self.weight, self.stride)
-        x = group_norm_nhwc(x, _num_groups(self.features), self.gn_scale, self.gn_bias)
+        # bf16: GroupNorm normalizes the conv's fp32 result with statistics
+        # of its bf16 rounding (the jitted JAX block's optimized HLO)
+        y = conv2d_nhwc(x.to(self.dtype), self.weight, self.stride, f32_result=True)
+        x = group_norm_nhwc(y, _num_groups(self.features), self.gn_scale, self.gn_bias,
+                            stats=y.to(self.dtype))
         return F.silu(x).to(self.dtype)
 
 
@@ -217,7 +233,9 @@ class Conv1x1(nn.Module):
             t.fill_(self.bias_init)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return conv2d_nhwc(x.to(self.dtype), self.weight, 1, self.bias)
+        # The bias is added to the conv's rounded result, in the compute
+        # dtype, as flax does and as the jitted JAX package keeps it.
+        return conv2d_nhwc(x.to(self.dtype), self.weight, 1) + self.bias.to(self.dtype)
 
 
 class UpBlock(nn.Module):
@@ -246,9 +264,9 @@ class UpBlock(nn.Module):
         up = F.conv_transpose2d(
             x.to(self.dtype).permute(0, 3, 1, 2),
             self.up_weight.to(dtype=self.dtype, memory_format=torch.channels_last),
-            self.up_bias.to(self.dtype),
+            None,
             stride=2,
-        ).permute(0, 2, 3, 1)
+        ).permute(0, 2, 3, 1) + self.up_bias.to(self.dtype)  # bias after rounding, as Conv1x1
         if tuple(up.shape[1:3]) != tuple(skip.shape[1:3]):
             skip = F.interpolate(
                 skip.permute(0, 3, 1, 2), size=tuple(up.shape[1:3]),

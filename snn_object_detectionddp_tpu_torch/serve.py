@@ -48,6 +48,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from .convert import load_weights
 from .data.encoding import preprocess_video
 from .data.png import SIGNATURE as PNG_SIGNATURE
 from .data.png import decode_png
@@ -542,28 +543,6 @@ def make_handler(service: DetectionService):
     return Handler
 
 
-def load_weights(detector, weights: str):
-    """Parameters from ``weights`` on the detector's device, the reader
-    chosen by the file's content: a ``torch.save`` zip (``PK\\x03\\x04``,
-    a checkpoint of this package's trainer, train/checkpoint.py) or else a
-    flax msgpack file of the JAX package (convert.py)."""
-    with open(weights, "rb") as f:
-        magic = f.read(4)
-    if magic == b"PK\x03\x04":
-        from .train.checkpoint import load_checkpoint
-
-        # The skeleton's meta parameters give structure and shapes only.
-        template = {"params": dict(detector.module.named_parameters())}
-        packed = load_checkpoint(weights, template, detector.device)
-        print(f"loaded {weights} (epoch {packed['epoch']})", flush=True)
-        return packed["state"]["params"]
-    from .convert import load_flax_params, params_from_jax
-
-    params = params_from_jax(load_flax_params(weights), detector.device)
-    print(f"loaded {weights}", flush=True)
-    return params
-
-
 def serve(cfg, weights: str | None, port: int = 8000, max_batch: int = 8,
           max_clip: int = 8, device: str = "cuda", on_ready=None):
     """Load the detector (a checkpoint of this package or a flax msgpack
@@ -613,5 +592,8 @@ if __name__ == "__main__":
                     help="largest clip chunk size (power of two); 1 disables clip chunks")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args()
-    serve(load_config(args.config), args.weights, args.port, args.max_batch,
-          args.max_clip, args.device)
+    cfg = load_config(args.config)
+    from .models.detector import set_tf32_policy
+
+    set_tf32_policy(cfg.runtime.precision)
+    serve(cfg, args.weights, args.port, args.max_batch, args.max_clip, args.device)

@@ -19,6 +19,7 @@ import jax
 import numpy as np
 import pytest
 import torch
+from flax import serialization
 
 from snn_object_detectionddp_tpu import config as jconfig
 from snn_object_detectionddp_tpu.data.synthetic import make_dataset as jax_make_dataset
@@ -148,6 +149,10 @@ def test_evaluation_matches_jax(tmp_path, capsys):
     assert "Loaded checkpoint" in capsys.readouterr().out
     save_checkpoint(tmp_path / "other.pt", {"params": tparams}, 3, 0.5)
     assert eval_2.evaluate(tcfg, str(tmp_path / "other.pt"), device="cpu") == got
+    # a flax file of the JAX package, told apart by its content
+    (tmp_path / "jax_best.pt").write_bytes(serialization.to_bytes({"params": jparams}))
+    assert eval_2.evaluate(tcfg, str(tmp_path / "jax_best.pt"), device="cpu") == got
+    assert "Loaded flax checkpoint" in capsys.readouterr().out
 
 
 def test_test_mode_evaluates_a_fresh_init_without_a_checkpoint(tree, tmp_path, capsys):
@@ -227,3 +232,54 @@ def test_command_lines_need_a_card(cli, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(SystemExit, match="needs a CUDA card"):
         cli.main(["--config", "no-such-file.yaml"])
+
+
+@pytest.mark.parametrize("precision", ["f32", "bf16"])
+@pytest.mark.parametrize("entry", ["main", "eval_2"])
+def test_tf32_policy_per_precision(entry, precision, tree, tmp_path, monkeypatch):
+    """The command lines set the TF32 switches from ``runtime.precision``
+    before they build a model: f32 runs convs and matmuls without TF32;
+    bf16 lets cuDNN convs (all of bf16-valued operands) use it, never
+    matmuls."""
+    cfg = _tiny(tconfig, tree, tmp_path / "run")
+    cfg.runtime.precision = precision
+    seen = {}
+
+    def record(*args, **kwargs):
+        seen["flags"] = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+        return {}
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(tconfig, "load_config", lambda path: cfg)
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", precision == "f32")
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
+    if entry == "main":
+        monkeypatch.setattr(main, "process_device", lambda: "cpu")
+        monkeypatch.setattr(main, "run", record)
+        main.main(["--config", "unused.yaml"])
+    else:
+        monkeypatch.setattr(eval_2, "evaluate", record)
+        eval_2.main(["--config", "unused.yaml"])
+    assert seen["flags"] == (precision == "bf16", False)
+
+
+@pytest.mark.parametrize("inner", ["f32", "bf16"])
+def test_tf32_policy_block_restores_the_switches(inner, monkeypatch):
+    """``tf32_policy`` sets a precision's switches inside its block and
+    puts the process's own back on leaving it, also when the block
+    raises."""
+    from snn_object_detectionddp_tpu_torch.models.detector import set_tf32_policy, tf32_policy
+
+    outer = "bf16" if inner == "f32" else "f32"
+    # restored after the test
+    monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", torch.backends.cudnn.allow_tf32)
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32",
+                        torch.backends.cuda.matmul.allow_tf32)
+    set_tf32_policy(outer)
+    before = (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32)
+    with pytest.raises(RuntimeError, match="inside"):
+        with tf32_policy(inner):
+            assert (torch.backends.cudnn.allow_tf32,
+                    torch.backends.cuda.matmul.allow_tf32) == (inner == "bf16", False)
+            raise RuntimeError("inside")
+    assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == before

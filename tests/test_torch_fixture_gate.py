@@ -7,10 +7,14 @@ package's ``evaluate_model`` on the same tree.
 The comparison runs both sides in fp32, where they compute the same
 function up to conv summation order (~1e-6 relative, which can swap
 detections of nearly equal score): mAP50, mAP50-95, precision, recall and
-fitness within ``RESULT_ATOL`` = 5e-3. In the yaml's own bf16 the two
-frameworks round at other places and the port's numbers are printed
-beside the values recorded for the JAX package (0.4144 / 0.1987), not
-held to them.
+fitness within ``RESULT_ATOL`` = 5e-3. The yaml's own bf16 runs on both
+sides too, and the port's numbers are printed beside JAX's with their
+difference, not held: the port rounds where the jitted JAX package rounds
+(models/layers.py), and mAP50, mAP50-95, recall and fitness land within
+5e-3, but precision (read at the max-F1 threshold) is ~1.1e-2 apart. The
+residual starts at the U-Net's ConvLSTM, whose fp32 gate math uses XLA's
+tanh/logistic on one side and PyTorch's on the other; bf16 roundings after
+it amplify those ulps.
 """
 
 import sys
@@ -61,18 +65,22 @@ def test_fixture_gate(tmp_path):
         port[precision] = tval.evaluate_model(cfg, Detector.from_config(cfg, device="cpu"),
                                               tparams, batch_size=16)
 
-    jcfg = _cfg(jax_load_config, root, "f32")
-    jdet = JDetector.from_config(jcfg)
-    template = jax.eval_shape(jdet.init_params, jax.random.PRNGKey(0))
     raw = serialization.msgpack_restore(CKPT.read_bytes())
-    jparams = jax.tree.map(lambda t, r: np.asarray(r, t.dtype), template,
-                           serialization.from_state_dict(template, raw["params"]))
-    want = jval.evaluate_model(jcfg, jdet, jparams, batch_size=16)
+    want = {}
+    for precision in ("f32", "bf16"):
+        jcfg = _cfg(jax_load_config, root, precision)
+        jdet = JDetector.from_config(jcfg)
+        template = jax.eval_shape(jdet.init_params, jax.random.PRNGKey(0))
+        jparams = jax.tree.map(lambda t, r: np.asarray(r, t.dtype), template,
+                               serialization.from_state_dict(template, raw["params"]))
+        want[precision] = jval.evaluate_model(jcfg, jdet, jparams, batch_size=16)
 
-    print(f"\nfixture gate ({time.perf_counter() - t0:.1f} s): recorded (JAX package, bf16) "
-          f"{RECORDED}; JAX f32 {want}; port f32 {port['f32']}; port bf16 {port['bf16']}")
-    assert set(port["f32"]) == set(want)
-    for k in want:
-        assert port["f32"][k] == pytest.approx(want[k], abs=RESULT_ATOL), k
+    gap = {k: round(port["bf16"][k] - want["bf16"][k], 5) for k in want["bf16"]}
+    print(f"\nfixture gate ({time.perf_counter() - t0:.1f} s): recorded (JAX package, TPU, bf16) "
+          f"{RECORDED}; JAX f32 {want['f32']}; port f32 {port['f32']}; JAX bf16 {want['bf16']}; "
+          f"port bf16 {port['bf16']}; port - JAX in bf16 {gap}")
+    assert set(port["f32"]) == set(want["f32"])
+    for k in want["f32"]:
+        assert port["f32"][k] == pytest.approx(want["f32"][k], abs=RESULT_ATOL), k
     # The trained checkpoint detects its fixture in either precision.
     assert port["f32"]["metrics/mAP50(B)"] > 0.3 and port["bf16"]["metrics/mAP50(B)"] > 0.3

@@ -105,6 +105,14 @@ def test_no_yaml_anywhere_and_cv2_only_for_non_png_uploads():
     assert cv2_sites == [("snn_object_detectionddp_tpu_torch/serve.py", "decode_upload")]
 
 
+def test_no_msgpack_anywhere():
+    """Flax checkpoints are read by utils/msgpack_subset.py: nothing of the
+    port imports the msgpack package, even lazily."""
+    for path in SOURCES:
+        for where, roots in _imports_by_function(path).items():
+            assert "msgpack" not in roots, f"{path.name}:{where} imports msgpack"
+
+
 def test_training_entry_points_default_to_cuda():
     from snn_object_detectionddp_tpu_torch.convert import train_state_from_jax
     from snn_object_detectionddp_tpu_torch.train import checkpoint
@@ -208,7 +216,7 @@ def test_evaluation_runs_on_the_detectors_device():
 def test_kernel_sources_are_in_the_package():
     from snn_object_detectionddp_tpu_torch.kernels import build
 
-    assert set(build.SOURCES) == {"affine_lif.cu", "lif_scan.cu", "png_unfilter.cpp"}
+    assert set(build.SOURCES) == {"affine_lif.cu", "lif_scan.cu", "png_unfilter.cpp", "raster.cpp"}
     for name in (*build.SOURCES, *build.HEADERS):
         assert (build.CSRC / name).is_file(), name
     text = (build.CSRC / "lif_scan.cu").read_text()

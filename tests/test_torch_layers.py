@@ -211,3 +211,73 @@ def test_encode_rate_statistics(level):
     bf = tenc.encode_rate(torch.from_numpy(imgs), torch.Generator().manual_seed(0), 64,
                           out_hw=(16, 16), dtype=torch.bfloat16)
     assert bf.shape == (64, 1, 16, 16, 3) and bf.dtype == torch.bfloat16
+
+
+# --- bf16 against the jitted JAX package ---------------------------------
+# XLA keeps a bf16 conv's fp32 result wherever an fp32 consumer reads it
+# (conv -> GroupNorm, the ConvLSTM's hidden-half gates, a spiking block's
+# statistics): the port computes "bf16 operands, fp32 result" at those
+# sites (layers.conv2d_nhwc's ``f32_result``). Each case holds the port's
+# bf16 block to ``jax.jit(module.apply)`` on the same inputs, with the share
+# of equal (or, for fp32 outputs, of 1e-5-close) elements stated. What
+# stays unequal is fp32 summation order and XLA's own tanh/logistic, which
+# a following bf16 rounding can amplify to one bf16 step.
+
+BF16 = jnp.bfloat16
+
+
+def _jit_apply(module, tree, *args, **kwargs):
+    return jax.jit(lambda p, *a: module.apply({"params": p}, *a, **kwargs))(tree, *args)
+
+
+def test_conv_block_bf16_matches_jit():
+    """GroupNorm normalizes the conv's fp32 result with statistics of its
+    bf16 rounding; equal in >= 99.5% of the bf16 outputs."""
+    x = np.random.RandomState(10).randn(2, 12, 16, 64).astype(np.float32)
+    jblock = jl.ConvBlock(64, dtype=BF16)
+    tree = _randomize(jblock.init(jax.random.PRNGKey(1), jnp.asarray(x))["params"], 3)
+    ref = _np(_jit_apply(jblock, tree, jnp.asarray(x)))
+    got = _port(lambda: tl.ConvBlock(64, 64, dtype=torch.bfloat16), tree, torch.from_numpy(x))
+    assert got.dtype == torch.bfloat16
+    assert np.mean(_np(got) == ref) >= 0.995
+
+
+def test_convlstm_bf16_matches_jit():
+    """The input half of the gates is stored in bf16, the hidden half's fp32
+    result feeds the fp32 gate sum: h_seq within 1e-5 of jit in >= 99.9%
+    of its elements."""
+    xl = np.random.RandomState(11).randn(4, 2, 6, 8, 16).astype(np.float32)
+    jm = jcl.ConvLSTM2d(16, dtype=BF16)
+    tree = _randomize(jm.init(jax.random.PRNGKey(2), jnp.asarray(xl))["params"], 4)
+    ref = _np(_jit_apply(jm, tree, jnp.asarray(xl))[0])
+    got = _np(_port(lambda: tcl.ConvLSTM2d(16, 16, dtype=torch.bfloat16), tree, torch.from_numpy(xl))[0])
+    assert np.mean(np.abs(got - ref) <= 1e-5) >= 0.999
+
+
+def test_detect_head_bf16_matches_jit():
+    """ConvBlocks as above; the 1x1 outputs add their bf16 bias to the
+    conv's bf16 rounding and round again: equal in >= 99% of the maps."""
+    rng = np.random.RandomState(12)
+    feats = [rng.randn(2, 8, 10, 32).astype(np.float32), rng.randn(2, 4, 5, 64).astype(np.float32),
+             rng.randn(2, 2, 3, 64).astype(np.float32)]
+    jhead = jdet.DetectHead(3, dtype=BF16)
+    tree = _randomize(jhead.init(jax.random.PRNGKey(3), [jnp.asarray(f) for f in feats])["params"], 5)
+    ref = np.concatenate([_np(v).ravel() for v in _jit_apply(jhead, tree, [jnp.asarray(f) for f in feats])])
+    got = _port(lambda: tdet.DetectHead(3, (32, 64, 64), dtype=torch.bfloat16), tree,
+                [torch.from_numpy(f) for f in feats])
+    assert all(g.dtype == torch.float32 for g in got)
+    assert np.mean(np.concatenate([_np(v).ravel() for v in got]) == ref) >= 0.99
+
+
+@pytest.mark.parametrize("hw,cout", [((16, 16), 16), ((16, 20), 32)])
+def test_spiking_conv_block_bf16_matches_jit(hw, cout):
+    """The group statistics read the conv's fp32 result, the LIF stage its
+    bf16 rounding: spikes equal, v_final within 2e-6 in >= 99.5%."""
+    xs = np.random.RandomState(13).randn(3, 2, *hw, 8).astype(np.float32)
+    jblock = jl.SpikingConvBlock(cout, JLIF(), dtype=BF16)
+    tree = _randomize(jblock.init(jax.random.PRNGKey(4), jnp.asarray(xs))["params"], 6)
+    ref = _jit_apply(jblock, tree, jnp.asarray(xs))
+    got = _port(lambda: tl.SpikingConvBlock(8, cout, TLIF(), dtype=torch.bfloat16), tree,
+                torch.from_numpy(xs))
+    assert np.array_equal(_np(got[0]), _np(ref[0]))
+    assert np.mean(np.abs(_np(got[1]) - _np(ref[1])) <= 2e-6) >= 0.995
