@@ -8,8 +8,10 @@ Run from the repository root:  python3 chip_smoke.py
 2. Holds each kernel against its plain PyTorch version on the card at the
    shapes the main paths give it: the normalize+LIF inference forward
    (A1) at every (T, B) the paths launch it with (a served frame, a
-   micro-batch of 4, a clip with readouts, the evaluation window: its
-   launch plan depends on B), residual-saving forward (A2) and
+   micro-batch of 4, a clip with readouts, the evaluation window, the
+   visualization batch at T=seq_len B=8: its launch plan depends on B)
+   and at the 20 shapes of the tracker's crop window (240x320, T=1 B=1),
+   the last two bit for bit, residual-saving forward (A2) and
    surrogate-BPTT backward (A3), the last also launched twice for
    bitwise-equal affine gradients, the second time under an operator log
    that must show allocations only (the affine gradients are added up
@@ -92,6 +94,27 @@ Run from the repository root:  python3 chip_smoke.py
    f32_result: the ConvBlocks, the ConvLSTM's hidden half, the spiking
    blocks' statistics) at full width, as bf16 convs (before), as fp32
    convs of bf16 values with TF32 (after, the bf16 policy) and without.
+13. Drives the side pipelines at the same full width on the data phase's
+   best.pt and a 480x640 test split with tracks.npy (3 sequences x 9
+   frames): prints whether OpenCV is importable; runs the tracker
+   benchmark's command line (eval) as a child for the entire_model and
+   cropped_model methods (exit 0, an import log naming no jax, flax,
+   msgpack, cv2 or yaml module, the aggregate printed); fits the learned
+   flow (PWCLite) on the card and runs one sequence of detector + learned
+   flow with the adaptive stride in-process, then the same sequence by the
+   cropped_model method, counts zeroed before and read after each: one A1
+   launch per spiking block a detector frame, no other kernel (these two
+   on best.pt's weights with the class-logit biases at 0, which keep boxes
+   at conf 0.3 where the 10-step model keeps none: so the crop program runs
+   and boxes are tracked); runs main in mode visualize as a child (with
+   OpenCV it must write the overlays, without it exit non-zero naming
+   cv2.putText before it loads best.pt) and the overlay's card part
+   in-process for both weight sets (predict at B=8, scale, draw, write; 20
+   A1 launches a batch; palette colours on every kept box's edge); stitches the video (or checks
+   that it raises naming cv2.VideoWriter); and times a streamed detector
+   frame (host and device), a PWCLite call at the 0.5 downsample, a
+   visualization batch split into model and drawing, and the FLOP
+   counts of the streamed and the crop step.
 
 The bf16 phases run under set_tf32_policy("bf16"), as the command lines
 set it for the default model; the fp32 checks (4, 6, and 7's card against
@@ -127,6 +150,7 @@ N_LATENCY = 300  # detect() requests timed through the service
 N_PROFILED = 50  # B=1 dispatches under the profiler
 T_CLIP = 4
 T_TRAIN, B_TRAIN = 5, 2  # the training window: default seq_len, two samples
+B_VIZ = 8  # the visualization batch (viz/overlay.py's default)
 N_TRAIN_STEPS = 4  # train steps of the one epoch driven through train_loop
 N_TIMED_STEPS = 6  # further train steps timed one by one
 N_PROFILED_STEPS = 3  # train steps under the profiler
@@ -1715,6 +1739,33 @@ def run_parallel_phase(card, K, n_blocks, scratch, rng) -> dict:
     return launches
 
 
+BANNED_IMPORTS = ("jax", "jaxlib", "flax", "msgpack", "cv2", "yaml")
+
+
+def run_child(module: str, args: list[str], timeout: int = 900):
+    """``python -m <module> <args>`` in a child process with its import
+    log (PYTHONPROFILEIMPORTTIME); returns (the completed process, the
+    modules it imported, wall seconds)."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPROFILEIMPORTTIME="1",
+               PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=repo, env=env,
+                          capture_output=True, text=True, timeout=timeout)
+    wall = time.perf_counter() - t0
+    imports = [l.rsplit("|", 1)[-1].strip() for l in proc.stderr.splitlines()
+               if l.startswith("import time:")]
+    return proc, imports, wall
+
+
+def child_errors(proc) -> str:
+    return "\n".join(l for l in proc.stderr.splitlines() if not l.startswith("import time:"))
+
+
+def banned_imports(imports: list[str]) -> list[str]:
+    return sorted({m for m in imports if m.split(".")[0] in BANNED_IMPORTS})
+
+
 METRIC_ATOL = 5e-3  # the card's fixture metrics against the JAX package's on the CPU
 N_CONV_REPS = 20  # timed repetitions of each changed conv
 
@@ -1723,21 +1774,12 @@ def run_child_eval(card, cfg_path: str, weights: str) -> dict:
     """``python -m snn_object_detectionddp_tpu_torch.eval_2`` in a child
     process; its import log (PYTHONPROFILEIMPORTTIME) must name none of
     jax, flax, msgpack, cv2 or yaml. Returns the printed metrics."""
-    repo = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPROFILEIMPORTTIME="1",
-               PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
-    cmd = [sys.executable, "-m", "snn_object_detectionddp_tpu_torch.eval_2", "--config", cfg_path,
-           "--weights", weights]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, cwd=repo, env=env, capture_output=True, text=True, timeout=900)
-    wall = time.perf_counter() - t0
-    imports = [l.rsplit("|", 1)[-1].strip() for l in proc.stderr.splitlines()
-               if l.startswith("import time:")]
+    proc, imports, wall = run_child("snn_object_detectionddp_tpu_torch.eval_2",
+                                    ["--config", cfg_path, "--weights", weights])
     if proc.returncode != 0:
-        errors = "\n".join(l for l in proc.stderr.splitlines() if not l.startswith("import time:"))
-        raise AssertionError(f"eval_2 exited {proc.returncode}:\n{proc.stdout[-4000:]}\n{errors[-4000:]}")
-    banned = sorted({m for m in imports
-                     if m.split(".")[0] in ("jax", "jaxlib", "flax", "msgpack", "cv2", "yaml")})
+        raise AssertionError(f"eval_2 exited {proc.returncode}:\n{proc.stdout[-4000:]}\n"
+                             f"{child_errors(proc)[-4000:]}")
+    banned = banned_imports(imports)
     if banned or not imports:
         raise AssertionError(f"the eval_2 child imported {banned[:10]} ({len(imports)} modules)")
     metrics = {}
@@ -1888,10 +1930,304 @@ def run_fixture_phase(card, K, scratch) -> dict:
     return launches
 
 
+N_FLOW_TIMED = 20  # PWCLite calls timed at the 0.5 downsample
+def edge_colors(img_rgb: np.ndarray, box, colors_bgr) -> bool:
+    """Whether a pixel within one pixel of the rounded box's outline has
+    one of the colours (a thickness-2 rectangle covers such pixels)."""
+    h, w = img_rgb.shape[:2]
+    x1, y1, x2, y2 = (int(round(float(v))) for v in box)
+    ys, xs = np.arange(min(y1, y2) - 1, max(y1, y2) + 2), np.arange(min(x1, x2) - 1, max(x1, x2) + 2)
+    ys, xs = ys[(ys >= 0) & (ys < h)], xs[(xs >= 0) & (xs < w)]
+    if not len(ys) or not len(xs):
+        return False
+    on_edge = ((np.abs(ys[:, None] - y1) <= 1) | (np.abs(ys[:, None] - y2) <= 1)
+               | (np.abs(xs[None, :] - x1) <= 1) | (np.abs(xs[None, :] - x2) <= 1))
+    patch = img_rgb[np.ix_(ys, xs)]
+    hit = np.zeros(on_edge.shape, bool)
+    for c in colors_bgr:
+        hit |= np.all(patch == np.array(c[::-1], np.uint8), axis=-1)
+    return bool((hit & on_edge).any())
+
+
+def check_overlay(img_rgb: np.ndarray, boxes, classes, palette) -> None:
+    """Every kept box's outline holds a palette colour (a box drawn later
+    may cover it), the last one drawn its own class's."""
+    for box in boxes:
+        if not edge_colors(img_rgb, box, palette):
+            raise AssertionError(f"no palette colour on the edge of box {box}")
+    if len(boxes) and not edge_colors(img_rgb, boxes[-1], [palette[int(classes[-1]) % len(palette)]]):
+        raise AssertionError(f"the last box {boxes[-1]} lacks its class's colour")
+
+
+def run_side_pipelines_phase(card, K, KL, n_blocks, scratch) -> dict:
+    """Phase 13: the tracker benchmark, the learned flow, the overlays and
+    the video at full width, on the data phase's best.pt and a test split
+    with tracks.npy. Returns the launches of the in-process runs."""
+    from snn_object_detectionddp_tpu_torch.config import Config
+    from snn_object_detectionddp_tpu_torch.convert import load_weights
+    from snn_object_detectionddp_tpu_torch.data.color import bgr_to_gray_u8
+    from snn_object_detectionddp_tpu_torch.data.dsec import DSECIndex
+    from snn_object_detectionddp_tpu_torch.data.pipeline import BatchLoader
+    from snn_object_detectionddp_tpu_torch.data.png import read_rgb, write_rgb
+    from snn_object_detectionddp_tpu_torch.data.resize import rescale_u8
+    from snn_object_detectionddp_tpu_torch.data.synthetic import make_dataset
+    from snn_object_detectionddp_tpu_torch.evals import legacy
+    from snn_object_detectionddp_tpu_torch.evals.flow import flow_flops_per_frame, get_model_flow
+    from snn_object_detectionddp_tpu_torch.evals.validator import make_predict_fn
+    from snn_object_detectionddp_tpu_torch.models.detector import Detector
+    from snn_object_detectionddp_tpu_torch.ops.boxes import scale_boxes
+    from snn_object_detectionddp_tpu_torch.viz import overlay
+    from snn_object_detectionddp_tpu_torch.viz.palette import _PALETTE
+    from snn_object_detectionddp_tpu_torch.viz.video import stitch_video
+
+    has_cv2 = importlib.util.find_spec("cv2") is not None
+    print(f"[{card}] phase 13: OpenCV (cv2) is {'importable' if has_cv2 else 'not installed'} "
+          "on this machine")
+    cfg = Config()  # yolo11m, 480x640, s2d4, ConvLSTM, bf16
+    h, w = cfg.model.image_size
+    seq_len = cfg.dataset.test.seq_len
+    t0 = time.perf_counter()
+    root = make_dataset(os.path.join(scratch, "dsec_test"), num_sequences=DATA_SEQS,
+                        splits=("test",), num_frames=DATA_FRAMES, height=h, width=w)
+    print(f"phase 13: wrote a test split with tracks.npy, {DATA_SEQS} sequences x {DATA_FRAMES} "
+          f"frames of {h}x{w}, in {time.perf_counter() - t0:.2f} s")
+    cfg.dataset.test.path = str(root / "test")
+    save_dir = os.path.join(scratch, "run")  # the data phase's save_dir
+    best = os.path.join(save_dir, "best.pt")
+    cfg_path = os.path.join(scratch, "side_config.yaml")
+    with open(cfg_path, "w") as f:
+        f.write(f"# the tracker benchmark and the overlays of the default model\ndataset:\n"
+                f"  test:\n    path: \"{root / 'test'}\"\n    seq_len: {seq_len}\n"
+                f"mode: \"visualize\"\ntraining:\n  num_workers: {DATA_THREADS}\n"
+                f"  save_dir: \"{save_dir}\"\n")
+
+    # The data phase's model keeps no box at the pipelines' conf 0.3 (its
+    # class-logit biases start near -8 and it trained for 10 steps); the same
+    # weights with those biases at 0 keep boxes, so that the crop program,
+    # the tracking and the drawing run on the card too (in-process).
+    det = Detector.from_config(cfg, device="cuda")
+    params = load_weights(det, best)
+    lively = {k: torch.zeros_like(v) if k.startswith("head.cls") and k.endswith("_out.bias") else v
+              for k, v in params.items()}
+
+    # (3) the tracker benchmark's command line, in child processes
+    for method in ("entire_model", "cropped_model"):
+        proc, imports, wall = run_child("snn_object_detectionddp_tpu_torch.eval",
+                                        ["--config", cfg_path, "--method", method, "--weights", best])
+        if proc.returncode != 0:
+            raise AssertionError(f"eval --method {method} exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-4000:]}\n{child_errors(proc)[-4000:]}")
+        if banned_imports(imports) or not imports:
+            raise AssertionError(f"the eval child imported {banned_imports(imports)[:10]} "
+                                 f"({len(imports)} modules)")
+        out = proc.stdout
+        agg = json.loads(out[out.rindex("\n{") + 1:])
+        if set(agg) != {"fps_incl_retrieval", "fps_excl_retrieval", "blended_flops_per_frame",
+                        "avg_iou", "precision", "num_detections"} or not agg["fps_excl_retrieval"] > 0:
+            raise AssertionError(f"eval --method {method} aggregate: {agg}")
+        seqs = [l for l in out.splitlines() if l.startswith("[seq_")]
+        print(f"[{card}] eval --method {method} child on the data phase's best.pt ({len(imports)} "
+              f"modules imported, none of {'/'.join(BANNED_IMPORTS)}; {wall:.1f} s of wall time, "
+              f"process start included): FPS incl {agg['fps_incl_retrieval']:.3f} / excl "
+              f"{agg['fps_excl_retrieval']:.3f}, blended {agg['blended_flops_per_frame'] / 1e9:.3f} "
+              f"GFLOPs/frame, avg_iou {agg['avg_iou']:.4f}, precision@0.5 {agg['precision']:.4f}, "
+              f"{agg['num_detections']} detections; " + " | ".join(seqs))
+
+    # (4) the learned flow on the card, then one sequence of detector +
+    # learned flow in-process with the launch counts
+    mf = get_model_flow("cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    epe = mf.fit_translations()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    predict, predict_crop = legacy.make_track_fns(det, lively)
+    ch, cw = legacy._crop_hw(h, w)
+    zero = np.zeros((1, h, w, 3), np.uint8)
+    # The FLOP counts of the two step programs (and of the flow at the 0.5
+    # downsample): counted once per geometry, so the benchmark's own run
+    # below finds them and launches nothing for them.
+    stream_flops = legacy.model_flops(det, "stream", predict, zero, predict(zero, None)[1])
+    crop_flops = legacy.model_flops(det, "crop", predict_crop, np.zeros((1, ch, cw, 3), np.uint8))
+    flow_flops = flow_flops_per_frame("model", h, w, 0.5)
+    paths = sorted(str(p) for p in (root / "test" / "seq_00" / "images/left/distorted").glob("*.png"))
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    KL.reset_launch_counts()
+    stats = legacy.process_sequence(det, lively, paths, method="optical_flow", flow_method="model",
+                                    compute_stride=legacy.default_adaptive_stride)
+    torch.cuda.synchronize()
+    launches = dict(K.launch_counts)
+    want = {"affine_lif_fwd": n_blocks * stats["det_count"], "affine_lif_fwd_res": 0,
+            "affine_lif_bwd": 0}
+    if launches != want or any(KL.launch_counts.values()):
+        raise AssertionError(f"learned-flow sequence: launches {launches} {dict(KL.launch_counts)}, "
+                             f"want {want} and no scan kernel")
+    if stats["det_count"] + stats["flow_count"] != len(paths) or not stats["flow_count"]:
+        raise AssertionError(f"learned-flow sequence: {stats['det_count']} detector + "
+                             f"{stats['flow_count']} flow frames of {len(paths)}")
+    if not all(np.isfinite(d).all() for d in stats["detections"]):
+        raise AssertionError("non-finite tracked boxes")
+    print(f"[{card}] learned flow: fit_translations (600 steps at 64x64, Adam 1e-3) on the card in "
+          f"{fit_s:.2f} s, final mean end-point error {epe:.4f} px; process_sequence(optical_flow, "
+          f"flow 'model', default_adaptive_stride) over {len(paths)} frames of seq_00: "
+          f"{stats['det_count']} detector + {stats['flow_count']} flow frames, strides "
+          f"{stats['stride_list']}, {sum(len(d) for d in stats['detections'])} tracked boxes "
+          f"(class biases at 0); A1 launches {launches['affine_lif_fwd']} = {n_blocks} x "
+          f"{stats['det_count']}, no other kernel")
+
+    K.reset_launch_counts()
+    crop = legacy.process_sequence(det, lively, paths, method="cropped_model")
+    torch.cuda.synchronize()
+    crop_launches = dict(K.launch_counts)
+    if (crop_launches != {**want, "affine_lif_fwd": n_blocks * crop["det_count"]}
+            or not crop["crop_det_count"] or any(KL.launch_counts.values())):
+        raise AssertionError(f"cropped sequence: {crop['crop_det_count']} crops, launches "
+                             f"{crop_launches}")
+    for k, v in crop_launches.items():
+        launches[k] += v
+    print(f"[{card}] process_sequence(cropped_model) over seq_00, class biases at 0: "
+          f"{crop['det_count']} detector frames, {crop['crop_det_count']} of them in the "
+          f"{ch}x{cw} window; blended {crop['blended_flops_per_frame'] / 1e9:.3f} GFLOPs a frame; "
+          f"A1 launches {crop_launches['affine_lif_fwd']} = {n_blocks} x {crop['det_count']}")
+
+    # (5) mode: visualize, as a child on the same best.pt and test split
+    vis_dir = os.path.join(save_dir, "visualizations")
+    proc, imports, wall = run_child("snn_object_detectionddp_tpu_torch.main", ["--config", cfg_path])
+    index = DSECIndex(cfg, "test")
+    last_names = {os.path.basename(s_.last_frame_path) for s_ in index.samples}
+    if has_cv2:
+        written = sorted(n for n in os.listdir(vis_dir) if n.endswith(".png")) if os.path.isdir(vis_dir) else []
+        if proc.returncode != 0 or set(written) != last_names:
+            raise AssertionError(f"visualize child exited {proc.returncode}, wrote {written}, want "
+                                 f"{sorted(last_names)}:\n{proc.stdout[-3000:]}\n{child_errors(proc)[-3000:]}")
+        branch = f"cv2 importable: the child exited 0 and wrote {len(written)} PNGs ({wall:.1f} s)"
+    else:
+        loaded = "Loaded checkpoint" in proc.stdout or "Model with val loss" in proc.stdout
+        if proc.returncode == 0 or "cv2.putText" not in child_errors(proc) or loaded:
+            raise AssertionError(f"visualize child without cv2: exit {proc.returncode}, loaded "
+                                 f"{loaded}:\n{proc.stdout[-3000:]}\n{child_errors(proc)[-3000:]}")
+        branch = (f"cv2 absent: the child exited {proc.returncode} before loading best.pt, naming "
+                  f"cv2.putText ({wall:.1f} s): "
+                  + child_errors(proc).strip().splitlines()[-1][:200])
+    print(f"[{card}] main --config (mode: visualize) child: {branch}")
+
+    # the overlay's card part in-process: predict at B=8, scale, draw without
+    # text, write; for best.pt (whose boxes the child's PNGs must show) and
+    # with the class biases at 0
+    loader = BatchLoader(index, list(range(len(index))), batch_size=B_VIZ, shuffle=False,
+                         num_threads=DATA_THREADS)
+    batches = list(loader)
+    predict_viz = make_predict_fn(det, conf=overlay.VIZ_CONF, iou=overlay.VIZ_IOU, multi_label=True)
+    for label, prm in (("best.pt", params), ("class biases at 0", lively)):
+        out_dir = os.path.join(scratch, "vis_inprocess", label.split()[0])
+        os.makedirs(out_dir)
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        model_ms, draw_ms, kept = [], [], {}
+        for batch in batches:
+            t0 = time.perf_counter()
+            out = {k: v.cpu().numpy() for k, v in predict_viz(prm, batch["images"]).items()}
+            t1 = time.perf_counter()
+            for i, path in enumerate(batch["paths"]):
+                orig = read_rgb(path)[..., ::-1]
+                valid = out["valid"][i]
+                boxes, classes = out["boxes"][i][valid], out["classes"][i][valid]
+                if boxes.size:
+                    boxes = scale_boxes(torch.from_numpy(boxes), batch["images"].shape[2:4],
+                                        orig.shape[:2]).numpy()
+                img = overlay.draw_bboxes(orig, boxes, None, classes)  # no text, as in JAX
+                write_rgb(os.path.join(out_dir, os.path.basename(path)), img[..., ::-1])
+                kept[os.path.basename(path)] = (boxes, classes)  # the window written last
+            model_ms.append((t1 - t0) * 1e3)
+            draw_ms.append((time.perf_counter() - t1) * 1e3)
+        torch.cuda.synchronize()
+        viz_launches = dict(K.launch_counts)
+        if viz_launches != {"affine_lif_fwd": n_blocks * len(batches), "affine_lif_fwd_res": 0,
+                            "affine_lif_bwd": 0}:
+            raise AssertionError(f"visualization: launches {viz_launches} for {len(batches)} batches")
+        for k, v in viz_launches.items():
+            launches[k] += v
+        checked_dirs = [out_dir] + ([vis_dir] if has_cv2 and label == "best.pt" else [])
+        n_boxes = sum(len(b) for b, _ in kept.values())
+        for d in checked_dirs:
+            for name, (boxes, classes) in kept.items():
+                img = read_rgb(os.path.join(d, name))
+                if img.shape != (h, w, 3):
+                    raise AssertionError(f"{d}/{name}: {img.shape}")
+                check_overlay(img, boxes, classes, _PALETTE)
+        if label != "best.pt" and not n_boxes:
+            raise AssertionError("the overlays with the class biases at 0 kept no box")
+        print(f"[{card}] overlays in-process, {label}: {len(index)} windows in {len(batches)} "
+              f"batches of {B_VIZ} (T={seq_len}), {n_boxes} boxes of the {len(kept)} PNGs' windows "
+              f"kept at conf {overlay.VIZ_CONF} and drawn without text, each PNG decoded at {h}x{w} "
+              f"with palette colours on every box's edge, the last box's own"
+              f"{' (the child' + chr(39) + 's PNGs too)' if len(checked_dirs) > 1 else ''}; A1 "
+              f"launches {viz_launches['affine_lif_fwd']} = {n_blocks} x {len(batches)}; ms per "
+              f"batch, model (predict + copy) {spread(model_ms)}, drawing and PNG writes "
+              f"{spread(draw_ms)}")
+
+    # (6) the video
+    if has_cv2:
+        mp4 = stitch_video(out_dir, os.path.join(scratch, "video", "output.mp4"))
+        print(f"[{card}] stitch_video: {mp4}, {os.path.getsize(mp4)} bytes")
+    else:
+        try:
+            stitch_video(out_dir, os.path.join(scratch, "video", "output.mp4"))
+        except ImportError as e:
+            if "cv2.VideoWriter" not in str(e):
+                raise
+            print(f"[{card}] stitch_video without cv2 raises ImportError: {e}")
+        else:
+            raise AssertionError("stitch_video ran without cv2")
+
+    # (7) times
+    frames = [read_rgb(p_) for p_ in paths]
+    stream_ms, state = [], None
+    for rgb in frames:
+        t0 = time.perf_counter()
+        out, state = predict(rgb[None], state)
+        {k: v.cpu() for k, v in out.items()}
+        stream_ms.append((time.perf_counter() - t0) * 1e3)
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        state = None
+        for rgb in frames:
+            out, state = predict(rgb[None], state)
+            {k: v.cpu() for k, v in out.items()}
+        torch.cuda.synchronize()
+    stream_dev = sum(e.self_device_time_total for e in kernel_rows(prof)) / 1e3 / len(frames)
+    grays = [rescale_u8(bgr_to_gray_u8(f[..., ::-1]), 0.5) for f in frames[:2]]
+    flow_ms = []
+    for _ in range(N_FLOW_TIMED):
+        t0 = time.perf_counter()
+        mf.compute(*grays)
+        flow_ms.append((time.perf_counter() - t0) * 1e3)
+    prof_flow = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                   torch.profiler.ProfilerActivity.CUDA])
+    with prof_flow:
+        for _ in range(N_FLOW_TIMED):
+            mf.compute(*grays)
+        torch.cuda.synchronize()
+    flow_dev = sum(e.self_device_time_total for e in kernel_rows(prof_flow)) / 1e3 / N_FLOW_TIMED
+    if stream_dev <= 0 or flow_dev <= 0:
+        raise AssertionError("the profiler recorded no device time")
+    print(f"[{card}] tracker times: streamed detector frame (T=1 B=1 {h}x{w}, predict + copy) "
+          f"host ms {spread(stream_ms)} over {len(frames)} frames, device (kernel) ms {stream_dev:.3f} "
+          f"a frame (profiler); PWCLite at {grays[0].shape[0]}x{grays[0].shape[1]} (the 0.5 "
+          f"downsample) host ms {spread(flow_ms)} a call, device ms {flow_dev:.3f}; flops_of: "
+          f"streamed step {stream_flops / 1e9:.3f} GFLOPs, crop step ({ch}x{cw}) "
+          f"{crop_flops / 1e9:.3f} GFLOPs, learned flow {flow_flops / 1e9:.3f} GFLOPs (convs and "
+          f"matmuls only, no hand kernel)")
+    return launches
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA card (torch.cuda.is_available() is False)")
     from snn_object_detectionddp_tpu_torch.config import Config
+    from snn_object_detectionddp_tpu_torch.evals.legacy import _crop_hw
     from snn_object_detectionddp_tpu_torch.kernels import affine_lif as K
     from snn_object_detectionddp_tpu_torch.kernels import build as kernel_build
     from snn_object_detectionddp_tpu_torch.kernels import lif as KL
@@ -1934,6 +2270,13 @@ def main() -> None:
     rng = np.random.RandomState(SEED)
     probe = torch.from_numpy(rng.rand(1, 1, h, w, 3).astype(np.float32)).to("cuda", torch.bfloat16)
     det.apply(params, probe)
+    # The tracker benchmark's cropped method runs the detector at the crop
+    # window (half the frame, 32-aligned): another 20 shapes.
+    crop_hw = _crop_hw(h, w)
+    n_full = len(lif_shapes)
+    det.apply(params, probe[:, :, : crop_hw[0], : crop_hw[1]].contiguous())
+    crop_shapes = lif_shapes[n_full:]
+    del lif_shapes[n_full:]
     for hk in hooks:
         hk.remove()
     n_blocks = len(lif_shapes)
@@ -1941,8 +2284,9 @@ def main() -> None:
     print(f"model: {cfg.model.yolo_model_name} {h}x{w} stem {cfg.model.stem} "
           f"{cfg.model.bottleneck} {cfg.runtime.precision}, {n_params / 1e6:.1f}M params, "
           f"{n_blocks} spiking blocks, {lif_elems} LIF elements per frame per step")
-    if n_blocks != 20:
-        raise AssertionError(f"expected 20 spiking blocks on the main path, found {n_blocks}")
+    if n_blocks != 20 or len(crop_shapes) != 20:
+        raise AssertionError(f"expected 20 spiking blocks on the main path, found {n_blocks} "
+                             f"(and {len(crop_shapes)} at the crop)")
 
     # -- phase 1: kernel vs plain version at the 20 main-path shapes --------
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -1951,41 +2295,49 @@ def main() -> None:
     # (T, B, readouts, params): the launch plan and the kernel's instance
     # depend on B, so every (T, B) a main path launches A1 with is held
     # against the plain version: a served frame, micro-batches of 2 and 4,
-    # a clip with readouts (alone and at B=2), the evaluation window.
+    # a clip with readouts (alone and at B=2), the evaluation window, the
+    # visualization batch (T=seq_len, B=8); and the tracker's crop window
+    # (T=1, B=1) at its own 20 shapes.
+    seq_len = cfg.dataset.test.seq_len
     cases = [(1, bsz, False, LIFParams()) for bsz in (1, 2, 4)] + [
         (T_CLIP, bsz, True, LIFParams(reset=r)) for bsz in (1, 2) for r in ("soft", "hard")
-    ] + [(T_TRAIN, B_TRAIN, False, LIFParams())]
+    ] + [(T_TRAIN, B_TRAIN, False, LIFParams()), (seq_len, B_VIZ, False, LIFParams())]
+    crop_case = (1, 1, False, LIFParams())
     plans = set()
-    for name, (_, hh, ww, cc) in lif_shapes:
-        for t_steps, bsz, readouts, p in cases:
-            tag = f"{name} T={t_steps} B={bsz} {p.reset}"
-            x4, a, b, v0 = lif_inputs((bsz, hh, ww, cc), t_steps, gen)
-            plan = K.fwd_plan(bsz, hh * ww, cc, x4.dtype, True)
-            plans.add((plan.vec, plan.ppt, plan.threads))
-            got = K.affine_lif_fwd(x4, a, b, p, v0, readouts)
-            ref = affine_lif_tb_reference(x4, a, b, p, v0, readouts)
-            torch.cuda.synchronize()
-            near = near_threshold(x4, a, b, p, v0)
-            flips = got[0] != ref[0]
-            if (flips & ~near).any():
-                raise AssertionError(f"{tag}: spikes differ away from threshold")
-            n_flips += int(flips.sum())
-            n_near += int(near.sum())
-            n_checked += flips.numel()
-            v_err = (got[1] - ref[1]).abs().max().item()
-            if v_err > V_ATOL:
-                raise AssertionError(f"{tag}: v_final error {v_err}")
-            max_err = max(max_err, v_err)
-            exact["spikes"] &= not bool(flips.any())
-            exact["v_final"] &= torch.equal(got[1], ref[1])
-            if readouts:
-                r_err = ((got[2].float() - ref[2].float()).abs()
-                         / ref[2].float().abs().clamp(min=1.0)).max().item()
-                if r_err > READ_RTOL:
-                    raise AssertionError(f"{tag}: readout error {r_err}")
-                max_err = max(max_err, (got[2].float() - ref[2].float()).abs().max().item())
-                exact["readouts"] &= torch.equal(got[2], ref[2])
+    walk = [(name, shp, c) for name, shp in lif_shapes for c in cases]
+    walk += [(f"{name} (crop {crop_hw[0]}x{crop_hw[1]})", shp, crop_case) for name, shp in crop_shapes]
+    for name, (_, hh, ww, cc), (t_steps, bsz, readouts, p) in walk:
+        tag = f"{name} T={t_steps} B={bsz} {p.reset}"
+        x4, a, b, v0 = lif_inputs((bsz, hh, ww, cc), t_steps, gen)
+        plan = K.fwd_plan(bsz, hh * ww, cc, x4.dtype, True)
+        plans.add((plan.vec, plan.ppt, plan.threads))
+        got = K.affine_lif_fwd(x4, a, b, p, v0, readouts)
+        ref = affine_lif_tb_reference(x4, a, b, p, v0, readouts)
+        torch.cuda.synchronize()
+        near = near_threshold(x4, a, b, p, v0)
+        flips = got[0] != ref[0]
+        if (flips & ~near).any():
+            raise AssertionError(f"{tag}: spikes differ away from threshold")
+        n_flips += int(flips.sum())
+        n_near += int(near.sum())
+        n_checked += flips.numel()
+        v_err = (got[1] - ref[1]).abs().max().item()
+        if v_err > V_ATOL:
+            raise AssertionError(f"{tag}: v_final error {v_err}")
+        max_err = max(max_err, v_err)
+        exact["spikes"] &= not bool(flips.any())
+        exact["v_final"] &= torch.equal(got[1], ref[1])
+        if (bsz == B_VIZ or "crop" in name) and (flips.any() or not torch.equal(got[1], ref[1])):
+            raise AssertionError(f"{tag}: not bit-equal to the plain version")
+        if readouts:
+            r_err = ((got[2].float() - ref[2].float()).abs()
+                     / ref[2].float().abs().clamp(min=1.0)).max().item()
+            if r_err > READ_RTOL:
+                raise AssertionError(f"{tag}: readout error {r_err}")
+            max_err = max(max_err, (got[2].float() - ref[2].float()).abs().max().item())
+            exact["readouts"] &= torch.equal(got[2], ref[2])
     print(f"phase 1 ok: affine_lif_fwd vs plain at {n_blocks} shapes x {len(cases)} cases "
+          f"and the {len(crop_shapes)} shapes of the {crop_hw[0]}x{crop_hw[1]} crop at T=1 B=1 "
           f"(bf16; (T, B, readouts, reset) "
           f"{[(t, bs, r, p.reset) for t, bs, r, p in cases]}; (vec, pixels a thread, threads) "
           f"of the plans {sorted(plans)}): bit-equal {exact}; max_abs_err {max_err}, "
@@ -2194,6 +2546,10 @@ def main() -> None:
         torch.cuda.empty_cache()
         # -- phase 7: the hard fixture and its checkpoint's metrics ---------
         for k, v in run_fixture_phase(card, K, scratch).items():
+            launches[k] += v
+        torch.cuda.empty_cache()
+        # -- phase 8: tracker benchmark, learned flow, overlays (item 13) ---
+        for k, v in run_side_pipelines_phase(card, K, KL, n_blocks, scratch).items():
             launches[k] += v
     finally:
         shutil.rmtree(scratch, ignore_errors=True)

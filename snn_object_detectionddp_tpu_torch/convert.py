@@ -75,6 +75,14 @@ def params_from_jax(tree: dict, device: str | torch.device = "cuda") -> dict[str
     return out
 
 
+def pwclite_params_from_jax(tree: dict, device: str | torch.device = "cuda") -> dict[str, torch.Tensor]:
+    """Flax ``PWCLite`` variables (``{"params": {"enc0": {"kernel", "bias"},
+    ...}}`` or the inner dict, numpy-convertible) -> the state dict of the
+    port's ``evals.flow.PWCLite`` (``enc0.weight`` OIHW, ``enc0.bias``, ...)
+    on ``device``."""
+    return params_from_jax(tree.get("params", tree), device)
+
+
 def _find_adam_state(node) -> list[dict]:
     """Every ``{"count", "mu", "nu"}`` node (optax ScaleByAdamState as a
     state dict) under ``node``."""
@@ -122,7 +130,10 @@ def load_flax_params(path: str | Path) -> dict:
     and return its param tree as nested dicts of numpy arrays. Accepts a
     params-only file (``{"params": ...}``) or a full train state
     (``{"state": {"params": ...}}``)."""
-    raw = _read_flax(path)
+    return _flax_params(_read_flax(path), path)
+
+
+def _flax_params(raw: dict, path) -> dict:
     if "params" in raw:
         return raw["params"]
     if "state" in raw and "params" in raw["state"]:
@@ -161,6 +172,13 @@ def load_weights(detector, weights: str | Path) -> dict[str, torch.Tensor]:
     a checkpoint of this package's trainer, train/checkpoint.py) or else a
     flax msgpack file of the JAX package (``fixtures/hard_nano_ckpt.pt``, a
     JAX ``best.pt``)."""
+    return load_packed_weights(detector, weights)["params"]
+
+
+def load_packed_weights(detector, weights: str | Path) -> dict:
+    """:func:`load_weights` with the file's best validation loss:
+    ``{"params", "best_val_loss"}`` (inf for a flax file that holds only
+    parameters)."""
     with open(weights, "rb") as f:
         magic = f.read(4)
     if magic == b"PK\x03\x04":
@@ -170,7 +188,8 @@ def load_weights(detector, weights: str | Path) -> dict[str, torch.Tensor]:
         template = {"params": dict(detector.module.named_parameters())}
         packed = load_checkpoint(weights, template, detector.device)
         print(f"Loaded checkpoint {weights} (epoch {packed['epoch']})", flush=True)
-        return packed["state"]["params"]
-    params = params_from_jax(load_flax_params(weights), detector.device)
+        return {"params": packed["state"]["params"], "best_val_loss": packed["best_val_loss"]}
+    raw = _read_flax(weights)
+    params = params_from_jax(_flax_params(raw, weights), detector.device)
     print(f"Loaded flax checkpoint {weights}", flush=True)
-    return params
+    return {"params": params, "best_val_loss": float(raw.get("best_val_loss", float("inf")))}

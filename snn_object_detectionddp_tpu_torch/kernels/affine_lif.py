@@ -41,6 +41,7 @@ from typing import NamedTuple
 import torch
 
 from ..models.lif import LIFParams, backward_cotangents
+from ..utils.debug import check_kernel_outputs
 from . import build as _build
 
 SOURCE = "affine_lif.cu"
@@ -274,6 +275,7 @@ def affine_lif_fwd(
     reads = torch.empty_like(x4) if with_readouts else None
     if v0.numel():
         _forward("affine_lif_fwd", x4, a, b, p, v0, (s, vfin, reads), dims)
+    check_kernel_outputs("affine_lif_fwd", s, vfin, reads)
     if with_readouts:
         return s, vfin, reads
     return s, vfin
@@ -292,6 +294,7 @@ def affine_lif_fwd_res(
     vfin = torch.empty_like(v0)
     if v0.numel():
         _forward("affine_lif_fwd_res", x4, a, b, p, v0, (s, vpre, vfin), dims)
+    check_kernel_outputs("affine_lif_fwd_res", s, vpre, vfin)
     return s, vpre, vfin
 
 
@@ -388,6 +391,7 @@ def affine_lif_bwd(
         # next backward starts from a fresh, zeroed scratch.
         _bwd_scratch.pop(_scratch_key(x4.device), None)
         raise
+    check_kernel_outputs("affine_lif_bwd", g_x, g_a, g_b, g_v0)
     return g_x, g_a, g_b, g_v0
 
 

@@ -30,6 +30,7 @@ import ctypes
 import torch
 
 from ..models.lif import LIFParams, backward_cotangents
+from ..utils.debug import check_kernel_outputs
 from . import build as _build
 
 SOURCE = "lif_scan.cu"
@@ -113,6 +114,7 @@ def lif_scan_fwd(
             t_steps, n, float(p.decay), float(p.threshold),
             int(p.reset == "hard"), _DTYPE_CODES[x_t.dtype],
         )
+    check_kernel_outputs("lif_scan_fwd", s, vfin)
     return s, vfin
 
 
@@ -133,6 +135,7 @@ def lif_scan_fwd_res(x_t: torch.Tensor, p: LIFParams, v0: torch.Tensor | None = 
             t_steps, n, float(p.decay), float(p.threshold),
             int(p.reset == "hard"), _DTYPE_CODES[x_t.dtype],
         )
+    check_kernel_outputs("lif_scan_fwd_res", s, vpre, vfin)
     return s, vpre, vfin
 
 
@@ -154,6 +157,7 @@ def lif_scan_bwd(
             g_v0.data_ptr(), t_steps, n, float(p.decay), float(p.threshold),
             float(p.surrogate_slope), int(p.reset == "hard"), _DTYPE_CODES[v_pre.dtype],
         )
+    check_kernel_outputs("lif_scan_bwd", g_x, g_v0)
     return g_x, g_v0
 
 

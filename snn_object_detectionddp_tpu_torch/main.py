@@ -10,9 +10,12 @@ builds the DSEC index, the seeded sequence split (and the debug subset), a
 shuffled train loader that drops a trailing partial batch and a padded
 validation loader, and trains through ``train/loop.py`` with checkpoints
 under ``training.save_dir`` (``resume_training`` continues from
-``training.weights_path``). ``mode: test`` and ``mode: eval`` run the mAP
-evaluation of :mod:`.eval_2`. The config is read without PyYAML
-(utils/yaml_subset.py).
+``training.weights_path``); ``runtime.debug_nans`` makes it raise at the
+first operator that returns a NaN (utils/debug.py). ``mode: visualize``
+draws the detections on the test split into ``<save_dir>/visualizations``
+(viz/overlay.py; the label text needs OpenCV). ``mode: test`` and ``mode:
+eval`` run the mAP evaluation of :mod:`.eval_2`. The config is read
+without PyYAML (utils/yaml_subset.py).
 
 Data parallelism: launched by torchrun (or with ``mesh.coordinator`` /
 ``num_processes`` / ``process_id``, as the JAX package is), every process
@@ -22,8 +25,7 @@ checkpoints (parallel/mesh.py).
 
 Not ported, each raising with the ROADMAP item that ports it: FSDP,
 spatial and tensor parallelism (``mesh.fsdp``, ``mesh.spatial``,
-``mesh.tensor``), NaN debugging (``runtime.debug_nans``) and ``mode:
-visualize``.
+``mesh.tensor``).
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from .parallel.mesh import (
     refuse_unported_axes,
 )
 from .train.checkpoint import load_backbone_params, resume_or_init
+from .utils.debug import nan_debugging
 from .train.loop import train_loop
 from .train.param_groups import make_grouped_optimizer
 from .train.step import (
@@ -57,18 +60,16 @@ from .train.step import (
 )
 
 
-def _check_ported(cfg) -> None:
-    refuse_unported_axes(cfg.mesh, train=True)
-    if cfg.runtime.debug_nans:
-        raise NotImplementedError(
-            "runtime.debug_nans is not ported: ROADMAP §1 item 4, side pipelines (utils/debug.py)"
-        )
-
-
 def train_code(cfg, detector) -> dict:
     """Train ``detector`` on the DSEC directory that ``cfg`` names; returns
-    the final train state."""
-    _check_ported(cfg)
+    the final train state. With ``runtime.debug_nans`` the first operator
+    (or hand kernel) that returns a NaN raises FloatingPointError."""
+    refuse_unported_axes(cfg.mesh, train=True)
+    with nan_debugging(cfg.runtime.debug_nans):
+        return _train(cfg, detector)
+
+
+def _train(cfg, detector) -> dict:
     mesh = make_mesh(cfg.mesh.data)
     save_dir = Path(cfg.training.save_dir)
     if is_main_process():
@@ -136,10 +137,24 @@ def train_code(cfg, detector) -> dict:
                       start_epoch=start_epoch, best_val_loss=best, detector=detector)
 
 
-def visualize_code(cfg, detector) -> None:
-    raise NotImplementedError(
-        "mode 'visualize' is not ported (viz/overlay.py): ROADMAP §1 item 4, side pipelines"
-    )
+def visualize_code(cfg, detector) -> list[str]:
+    """Draw the detections of ``<save_dir>/best.pt`` (a checkpoint of this
+    package or a flax file) on the test split into
+    ``<save_dir>/visualizations``; returns the saved paths. Raises naming
+    cv2.putText, before it reads anything, where OpenCV is missing."""
+    from .convert import load_packed_weights
+    from .data.classes import DSEC_DET_CLASSES
+    from .viz.overlay import _put_label, run_visualization
+
+    _put_label()
+    save_dir = Path(cfg.training.save_dir)
+    weights_path = save_dir / "best.pt"
+    output_dir = save_dir / "visualizations"
+    print(f"Saving visualizations to {output_dir}")
+    packed = load_packed_weights(detector, weights_path)
+    print(f"Model with val loss {packed['best_val_loss']} loaded successfully for visualization.")
+    return run_visualization(cfg, detector, packed["params"], output_dir,
+                             class_names=DSEC_DET_CLASSES[: cfg.model.num_classes])
 
 
 def run(cfg, detector):

@@ -12,8 +12,20 @@ driven on the CPU with a tiny model over DSEC-shaped trees.
   which can swap two detections of nearly equal score: the results dict
   is held to ``RESULT_ATOL`` = 5e-3, as tests/test_torch_eval.py does.
 - what is not ported raises, naming the ROADMAP item that ports it; a
-  data axis larger than the world raises ValueError.
+  data axis larger than the world raises ValueError; ``mode: visualize``
+  without OpenCV raises naming cv2.putText before it reads the checkpoint,
+  ``runtime.debug_nans`` raises at the operator that made a NaN.
+- ``mode: visualize`` writes one overlay per test window, the tracker
+  benchmark's command line (``eval``) prints ``process_dataset``'s
+  aggregate, and NaN debugging catches a NaN made in the forward and one
+  made in the backward, and leaves a train step's outputs bit for bit as
+  they are.
 """
+
+import json
+import math
+import sys
+
 
 import jax
 import numpy as np
@@ -26,6 +38,7 @@ from snn_object_detectionddp_tpu.data.synthetic import make_dataset as jax_make_
 from snn_object_detectionddp_tpu.evals import validator as jval
 from snn_object_detectionddp_tpu.models.detector import Detector as JDetector
 from snn_object_detectionddp_tpu_torch import config as tconfig
+from snn_object_detectionddp_tpu_torch import eval as track_eval
 from snn_object_detectionddp_tpu_torch import eval_2, main
 from snn_object_detectionddp_tpu_torch.convert import params_from_jax
 from snn_object_detectionddp_tpu_torch.data.synthetic import make_dataset
@@ -179,21 +192,25 @@ def _set(path, value):
 
 # What stays unported raises, naming its ROADMAP item. mesh.data is ported:
 # on a one-process run, a data axis of 2 exceeds the world and raises
-# ValueError naming the world size.
+# ValueError naming the world size. The test runs without OpenCV, as a GPU
+# host may: visualize raises naming cv2.putText before it reads
+# best.pt. debug_nans with a NaN learning rate raises at the first update.
 UNPORTED = {
     "mesh_tensor": (_set("mesh.tensor", 2), NotImplementedError, r"item 3 \(e\), tensor"),
     "mesh_data": (_set("mesh.data", 2), ValueError, "world size of 1"),
     "mesh_spatial": (_set("mesh.spatial", 2), NotImplementedError, r"item 3 \(d\), spatial"),
     "mesh_fsdp": (_set("mesh.fsdp", True), NotImplementedError, r"item 3 \(c\), FSDP"),
-    "debug_nans": (_set("runtime.debug_nans", True), NotImplementedError,
-                   "item 4, side pipelines"),
-    "visualize": (_set("mode", "visualize"), NotImplementedError, "item 4, side pipelines"),
+    "debug_nans": (lambda cfg: (_set("runtime.debug_nans", True)(cfg),
+                                _set("training.learning_rate", math.nan)(cfg)),
+                   FloatingPointError, r"NaN in the output of aten\."),
+    "visualize": (_set("mode", "visualize"), ImportError, r"cv2\.putText"),
 }
 
 
 @pytest.mark.parametrize("case", list(UNPORTED))
-def test_unported_branches_raise(tree, tmp_path, case):
+def test_unported_branches_raise(tree, tmp_path, case, monkeypatch):
     change, error, match = UNPORTED[case]
+    monkeypatch.setitem(sys.modules, "cv2", None)
     cfg = _tiny(tconfig, tree, tmp_path / "run")
     det = Detector.from_config(cfg, device="cpu")
     change(cfg)
@@ -225,7 +242,7 @@ def test_evaluation_on_several_devices_raises(tree, tmp_path):
         main.run(cfg, det)
 
 
-@pytest.mark.parametrize("cli", [main, eval_2], ids=["main", "eval_2"])
+@pytest.mark.parametrize("cli", [main, eval_2, track_eval], ids=["main", "eval_2", "eval"])
 def test_command_lines_need_a_card(cli, monkeypatch):
     """Without a card the command lines stop before reading the config,
     with a message (there is no CPU path)."""
@@ -283,3 +300,122 @@ def test_tf32_policy_block_restores_the_switches(inner, monkeypatch):
                     torch.backends.cuda.matmul.allow_tf32) == (inner == "bf16", False)
             raise RuntimeError("inside")
     assert (torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32) == before
+
+
+def test_visualize_mode_writes_overlays(tree, tmp_path, capsys):
+    """``mode: visualize`` on a CPU detector: ``<save_dir>/best.pt`` (read by
+    ``convert.load_packed_weights``, whose flax branch
+    test_evaluation_matches_jax drives) to one overlay PNG per test window,
+    named after its last frame."""
+    from snn_object_detectionddp_tpu_torch.data.png import read_rgb
+
+    cfg = _tiny(tconfig, tree, tmp_path / "run")
+    cfg.mode = "visualize"
+    det = Detector.from_config(cfg, device="cpu")
+    params = det.init_params(torch.Generator().manual_seed(0))
+    save_checkpoint(tmp_path / "run/best.pt", {"params": params}, 0, 0.25)
+    saved = main.run(cfg, det)
+    out = capsys.readouterr().out
+    assert "Model with val loss 0.25 loaded successfully for visualization." in out
+    # 3 sequences x 4 windows of 2 frames; the sequences share frame names
+    # (an overlay is named after its last frame, as in the JAX package)
+    assert len(saved) == 12
+    vis = tmp_path / "run/visualizations"
+    assert {p.name for p in vis.glob("*.png")} == {p.rsplit("/", 1)[1] for p in saved}
+    for p in vis.glob("*.png"):
+        assert read_rgb(p).shape == (48, 64, 3)
+
+
+def test_tracker_command_line_prints_the_aggregate(tree, tmp_path, monkeypatch, capsys):
+    """``python -m snn_object_detectionddp_tpu_torch.eval`` on a CPU detector
+    (the seam of the command-line tests above): the printed JSON is
+    ``process_dataset``'s aggregate; without a checkpoint it warns and
+    benchmarks the seeded initialisation."""
+    from snn_object_detectionddp_tpu_torch.evals.legacy import process_dataset
+
+    cfg = _tiny(tconfig, tree, tmp_path / "run")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(tconfig, "load_config", lambda path: cfg)
+    monkeypatch.setattr(track_eval, "process_device", lambda: "cpu")
+    report = track_eval.main(["--config", "unused.yaml", "--method", "entire_model",
+                              "--max-frames", "3"])
+    out = capsys.readouterr().out
+    assert "WARNING: no checkpoint" in out
+    printed = json.loads(out[out.index("{"):])
+    assert printed == report["aggregate"]
+    det = Detector.from_config(cfg, device="cpu")
+    want = process_dataset(cfg, det, det.init_params(torch.Generator().manual_seed(0)),
+                           method="entire_model", max_frames_per_seq=3)["aggregate"]
+    assert set(printed) == set(want)
+    for key in ("blended_flops_per_frame", "avg_iou", "precision", "num_detections"):
+        assert printed[key] == want[key], key
+    save_checkpoint(tmp_path / "run/best.pt", {"params": det.init_params()}, 0, 0.5)
+    track_eval.main(["--config", "unused.yaml", "--method", "optical_flow", "--stride", "2",
+                     "--adaptive-stride", "--max-frames", "3"])
+    assert "Loaded checkpoint" in capsys.readouterr().out
+
+
+def test_nan_debugging_forward_backward_and_off(tree):
+    """NaN debugging raises at the operator that makes a NaN: in the
+    forward (an infinite weight of the head's last conv, summed over inputs of
+    both signs) and in the backward (an infinite
+    cotangent), where without it the NaN passes silently. It changes no
+    value: a train step with it on equals the step with it off, bit for
+    bit, and off no dispatch mode is left behind."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode
+
+    from snn_object_detectionddp_tpu_torch.train.step import init_state, make_optimizer, make_step_fns
+    from snn_object_detectionddp_tpu_torch.utils.debug import nan_debugging
+
+    cfg = _tiny(tconfig, tree)
+    det = Detector.from_config(cfg, device="cpu")
+    params = det.init_params(torch.Generator().manual_seed(0))
+    frames = torch.rand(2, 1, 48, 64, 3, generator=torch.Generator().manual_seed(1))
+
+    bad = dict(params)
+    bad["head.cls0_out.weight"] = torch.full_like(bad["head.cls0_out.weight"], math.inf)
+    assert not all(torch.isfinite(r).all() for r in det.apply(bad, frames)[0])  # silent
+    with nan_debugging(), pytest.raises(FloatingPointError, match=r"NaN in the output of aten\."):
+        det.apply(bad, frames)
+
+    leaf = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+    raw, _ = det.apply_train(leaf, frames)
+    cot = [torch.full_like(r, math.inf) for r in raw]
+    with nan_debugging(), pytest.raises(FloatingPointError, match=r"NaN in the output of aten\."):
+        raw, _ = det.apply_train(leaf, frames)
+        torch.autograd.backward(raw, cot)
+    assert _get_current_dispatch_mode() is None
+
+    tx, sched = make_optimizer(1e-3, 4)
+    fns = make_step_fns(det, tx, sched)
+    batch = {"images": (frames.permute(1, 0, 2, 3, 4) * 255).to(torch.uint8).numpy(),
+             "labels": np.zeros((1, 2, 5), np.float32), "label_mask": np.zeros((1, 2), bool)}
+    batch["labels"][0, 0] = [1, 0.5, 0.5, 0.3, 0.3]
+    batch["label_mask"][0, 0] = True
+    outs = []
+    for on in (False, True):
+        state = init_state({k: v.clone() for k, v in params.items()}, tx, sched)
+        with nan_debugging(on):
+            state, metrics = fns.train_step(state, batch)
+        outs.append((state, metrics))
+    (s0, m0), (s1, m1) = outs
+    assert _get_current_dispatch_mode() is None
+    for k in m0:
+        assert torch.equal(torch.as_tensor(m0[k]), torch.as_tensor(m1[k])), k
+    for k in s0["params"]:
+        assert torch.equal(s0["params"][k], s1["params"][k]), k
+
+
+def test_checked_raises_at_the_operator():
+    """``utils.debug.checked``: a non-finite result (an inf included) or an
+    index out of bounds raises at the operator; finite work passes."""
+    from snn_object_detectionddp_tpu_torch.utils.debug import checked
+
+    assert torch.equal(checked(lambda x: x * 2)(torch.ones(3)), torch.full((3,), 2.0))
+    with pytest.raises(FloatingPointError, match=r"non-finite value in the output of aten\.div"):
+        checked(lambda x: x / 0)(torch.ones(3))
+    for fn in (lambda x: x[torch.tensor([3])], lambda x: x.gather(0, torch.tensor([-4])),
+               lambda x: x.index_select(0, torch.tensor([5]))):
+        with pytest.raises(IndexError, match="out of bounds"):
+            checked(fn)(torch.zeros(3))
+    assert checked(lambda x: x[torch.tensor([-3, 2])])(torch.arange(3.0)).tolist() == [0.0, 2.0]

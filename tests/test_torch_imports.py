@@ -13,6 +13,11 @@ REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "snn_object_detectionddp_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sklearn", "snn_object_detectionddp_tpu")
 SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+# The tracker benchmark, its flow, the overlays, the video, profiling and
+# NaN debugging.
+NEW_MODULES = ("data/color.py", "evals/flow.py", "evals/legacy.py", "eval.py", "video.py",
+               "viz/__init__.py", "viz/palette.py", "viz/overlay.py", "viz/video.py",
+               "utils/profiling.py", "utils/debug.py")
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -35,7 +40,7 @@ def test_port_sources_found():
                 "evals/validator.py", "evals/__init__.py", "data/dsec.py", "data/png.py",
                 "data/native.py", "data/pipeline.py", "data/synthetic.py", "data/classes.py",
                 "main.py", "eval_2.py", "data/resize.py", "utils/yaml_subset.py",
-                "parallel/__init__.py", "parallel/mesh.py"):
+                "parallel/__init__.py", "parallel/mesh.py", *NEW_MODULES):
         assert f"snn_object_detectionddp_tpu_torch/{new}" in names
     assert len(names) >= 46
 
@@ -66,7 +71,9 @@ def test_optional_packages_are_imported_lazily(path):
 # The data pipeline and the command lines run on the card machine, which
 # has no OpenCV, scikit-learn or tqdm: they may not import them at all.
 DATA_PATH = sorted((PORT / "data").glob("*.py")) + [
-    PORT / "main.py", PORT / "eval_2.py", PORT / "evals" / "validator.py", REPO / "chip_smoke.py"]
+    PORT / "main.py", PORT / "eval_2.py", PORT / "evals" / "validator.py", REPO / "chip_smoke.py",
+    PORT / "evals" / "legacy.py", PORT / "eval.py", PORT / "video.py",
+    PORT / "utils" / "profiling.py", PORT / "utils" / "debug.py"]
 
 
 @pytest.mark.parametrize("path", DATA_PATH, ids=lambda p: p.relative_to(REPO).as_posix())
@@ -94,15 +101,38 @@ def _imports_by_function(path: Path) -> dict[str, set[str]]:
 
 def test_no_yaml_anywhere_and_cv2_only_for_non_png_uploads():
     """The configs are read by utils/yaml_subset.py: nothing of the port
-    imports PyYAML, even lazily. OpenCV is reached only by the HTTP
-    endpoint's branch for non-PNG uploads (serve.decode_upload)."""
+    imports PyYAML, even lazily. OpenCV is reached only where the port has
+    no replacement for it: the HTTP endpoint's branch for non-PNG uploads
+    (serve.decode_upload), the overlay's label text (cv2.putText), the MP4
+    writer (cv2.VideoWriter) and Farneback flow."""
     cv2_sites = []
     for path in SOURCES:
         for where, roots in _imports_by_function(path).items():
             assert "yaml" not in roots, f"{path.name}:{where} imports yaml"
             if "cv2" in roots:
                 cv2_sites.append((path.relative_to(REPO).as_posix(), where))
-    assert cv2_sites == [("snn_object_detectionddp_tpu_torch/serve.py", "decode_upload")]
+    assert sorted(cv2_sites) == [
+        ("snn_object_detectionddp_tpu_torch/evals/flow.py", "farneback_flow"),
+        ("snn_object_detectionddp_tpu_torch/serve.py", "decode_upload"),
+        ("snn_object_detectionddp_tpu_torch/viz/overlay.py", "_put_label"),
+        ("snn_object_detectionddp_tpu_torch/viz/video.py", "frames_to_video"),
+        ("snn_object_detectionddp_tpu_torch/viz/video.py", "stitch_video"),
+    ]
+
+
+def test_new_modules_import_without_cv2():
+    """Every module of the tracker benchmark, overlays, video, profiling and
+    NaN debugging imports in a fresh process where OpenCV is absent."""
+    import subprocess
+    import sys
+
+    names = [f"snn_object_detectionddp_tpu_torch.{m[:-3].replace('/', '.')}" for m in NEW_MODULES]
+    code = ("import sys; sys.modules['cv2'] = None\n"
+            + "".join(f"import {n}\n" for n in names)
+            + "assert sys.modules['cv2'] is None\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
 
 
 def test_no_msgpack_anywhere():
