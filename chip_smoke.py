@@ -115,10 +115,28 @@ Run from the repository root:  python3 chip_smoke.py
    frame (host and device), a PWCLite call at the 0.5 downsample, a
    visualization batch split into model and drawing, and the FLOP
    counts of the streamed and the crop step.
+14. Drives the six kernels as torch.library operators (kernels/ops.py),
+   the serving export and selective remat at the same full width: opcheck
+   of each operator on the card at the stem's shape; exports the streaming
+   pair (B=1, 480x640, conf 0.3, iou 0.45, max_det 100) and the batch
+   program (B=1, T=seq_len) of the default model in bf16 with no kernel
+   launched while tracing, with the wall time and the .pt2 sizes; loads
+   and runs them in a child process (its import log must name no jax,
+   flax, msgpack, cv2 or yaml module) that streams 3 frames, state
+   carried, with one A1 launch per spiking block an exported frame; holds
+   the child's detections and states to the in-process eager path bit for
+   bit (else it names the first operator that differs and holds the
+   detections to equal counts and classes, scores within 1e-2 relative);
+   times an exported B=1 frame against the eager DetectionService step in
+   turns; then remat_policy="save_conv": in f32 without TF32 (T=4, B=2,
+   chunks of 2) the loss and gradients of "full" and "save_conv" against
+   each other and against no remat (loss 1e-3, gradient norm 1e-2
+   relative), and in bf16 (T=10, B=2, chunks of 5) the peak memory, ms
+   and launches of a train step under no remat, "full" and "save_conv".
 
 The bf16 phases run under set_tf32_policy("bf16"), as the command lines
-set it for the default model; the fp32 checks (4, 6, and 7's card against
-CPU) run inside tf32_policy("f32").
+set it for the default model; the fp32 checks (4, 6, 7's card against
+CPU and 14's save_conv check) run inside tf32_policy("f32").
 
 Prints the card's name and power limit, a {"kernels": [...]} line, and as
 its last line {"ok": true, "device": {...}}. Any failure raises (non-zero
@@ -1808,10 +1826,10 @@ def time_changed_convs(card) -> None:
     params = det.init_params(torch.Generator().manual_seed(SEED))
     calls, plain = [], layers.conv2d_nhwc
 
-    def record(x, weight, stride=1, f32_result=False):
+    def record(x, weight, stride=1, f32_result=False, name=None):
         if f32_result:
             calls.append((x.detach().clone(), weight.detach().clone(), stride))
-        return plain(x, weight, stride, f32_result)
+        return plain(x, weight, stride, f32_result, name)
 
     h, w = Config().model.image_size
     frames = torch.rand((T_TRAIN, B_TRAIN, h, w, 3), generator=torch.Generator().manual_seed(SEED))
@@ -2223,6 +2241,435 @@ def run_side_pipelines_phase(card, K, KL, n_blocks, scratch) -> dict:
     return launches
 
 
+N_EXPORT_FRAMES = 3  # frames streamed through the loaded programs
+EXPORT_NMS = dict(conf=0.3, iou=0.45, max_det=100)
+EXPORT_WINDOWS, EXPORT_PER_WINDOW = 3, 100  # B=1 frames timed, exported and eager in turns
+# Where the reloaded program's detections differ from the eager path's (the
+# same operators on the same card should give the same bits), the counts
+# and classes must still be equal and the scores within this relative gap.
+EXPORT_SCORE_RTOL = 1e-2
+T_REMAT_F32, B_REMAT_F32, CHUNK_F32 = 4, 2, 2  # the f32 save_conv check: two chunks
+N_HOST_PROFILED = 20  # B=1 frames of each path under cProfile
+T_REMAT, B_REMAT, CHUNK = 10, 2, 5  # the bf16 remat cost window
+N_REMAT_STEPS = 3  # timed bf16 train steps a variant and pass (two passes, reversed order)
+# full and save_conv against no remat in f32: a chunk's convs run over
+# fewer frames, for which cuDNN may sum in another order (~1e-7 relative);
+# held at 1e-3 on the loss and 1e-2 on the gradient norm on a window where
+# no spike flips between the chunked and the unchunked forward (a flipped
+# spike makes them different functions downstream, as in gradient_check).
+REMAT_LOSS_RTOL, REMAT_GNORM_RTOL = 1e-3, 1e-2
+REMAT_VARIANTS = (("none", {}), ("full", {"remat_policy": "full"}),
+                  ("save_conv", {"remat_policy": "save_conv"}))
+
+
+def tree_tensors(tree) -> list:
+    from torch.utils._pytree import tree_leaves
+
+    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+class OpTrace(TorchDispatchMode):
+    """Every operator dispatched while entered, with copies of its tensor
+    outputs: the first one two runs disagree on is where they part."""
+
+    def __init__(self):
+        super().__init__()
+        self.log = []
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        self.log.append((str(func), [t.detach().clone() for t in tree_tensors(out)]))
+        return out
+
+
+def first_difference(run_a, run_b) -> str:
+    """Run two callables under OpTrace; name the first operator whose
+    outputs differ between them (or where their operator sequences part)."""
+    logs = []
+    for run in (run_a, run_b):
+        with torch.no_grad(), OpTrace() as trace:
+            run()
+        torch.cuda.synchronize()
+        logs.append(trace.log)
+    for i, ((fa, oa), (fb, ob)) in enumerate(zip(*logs)):
+        if fa != fb:
+            return f"operator {i}: the sequences part ({fa} vs {fb})"
+        for a, b in zip(oa, ob):
+            if a.shape != b.shape or not torch.equal(a, b):
+                err = (a.float() - b.float()).abs().max().item() if a.shape == b.shape else "shape"
+                return f"operator {i} {fa}: max |diff| {err}"
+    return f"no operator differs ({len(logs[0])} and {len(logs[1])} operators)"
+
+
+def host_profile(fn, n: int) -> str:
+    """cProfile of n calls of fn: total ms a call and the six functions
+    with the most own time, in ms a call."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    for _ in range(n):
+        fn()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    total = sum(v[2] for v in stats.values()) * 1e3 / n
+    top = sorted(stats.items(), key=lambda kv: -kv[1][2])[:6]
+    return f"{total:.2f} ms a call under the profiler; own time " + ", ".join(
+        f"{func} ({os.path.basename(path)}) {v[2] * 1e3 / n:.2f} ms" for (path, _, func), v in top)
+
+
+def exported_child(args: list[str]) -> None:
+    """``python -m chip_smoke --exported-child INIT STEP BATCH FRAMES OUT``:
+    load the three exported programs, stream the frames (init, then step
+    carrying the state) and run the batch program on the first seq_len of
+    them, counting A1 launches per call; save every output and state to
+    OUT and print one JSON line."""
+    init_path, step_path, batch_path, frames_path, out_path, seq_len = args
+    from snn_object_detectionddp_tpu_torch.kernels import affine_lif as K
+    from snn_object_detectionddp_tpu_torch.models.detector import set_tf32_policy
+    from snn_object_detectionddp_tpu_torch.utils.export import load_serving
+
+    set_tf32_policy("bf16")  # as the parent and the command lines run the default model
+    t0 = time.perf_counter()
+    init, step, batch = (load_serving(p) for p in (init_path, step_path, batch_path))
+    load_s = time.perf_counter() - t0
+    frames = np.load(frames_path)
+    results, launches, state = [], [], None
+    for i in range(N_EXPORT_FRAMES):
+        K.reset_launch_counts()
+        out, state = init.call(frames[i : i + 1]) if i == 0 else step.call(frames[i : i + 1], state)
+        torch.cuda.synchronize()
+        launches.append(dict(K.launch_counts))
+        results.append((out, state))
+    K.reset_launch_counts()
+    clip_out = batch.call(frames[None, : int(seq_len)])
+    torch.cuda.synchronize()
+    launches.append(dict(K.launch_counts))
+    from torch.utils._pytree import tree_map
+
+    to_cpu = lambda tree: tree_map(lambda t: t.cpu(), tree)  # noqa: E731
+    torch.save({"frames": to_cpu(results), "clip": to_cpu(clip_out)}, out_path)
+    print(json.dumps({"load_s": load_s, "launches": launches}))
+
+
+def hold_detections(got: dict, want: dict, tag: str) -> str:
+    """Equal valid counts and classes, scores within EXPORT_SCORE_RTOL."""
+    n_got, n_want = int(got["valid"].sum()), int(want["valid"].sum())
+    if n_got != n_want or not torch.equal(got["classes"], want["classes"]):
+        raise AssertionError(f"{tag}: {n_got} vs {n_want} detections or other classes")
+    rel = ((got["scores"] - want["scores"]).abs() / want["scores"].abs().clamp(min=1e-6)).max().item()
+    if rel > EXPORT_SCORE_RTOL:
+        raise AssertionError(f"{tag}: scores {rel:.3g} apart (relative)")
+    return f"{tag}: {n_got} detections, classes equal, scores {rel:.3g} apart"
+
+
+def opcheck_on_card(card, K, lif_shapes, gen) -> None:
+    """torch.library.opcheck of the six operators on the card, at the
+    stem's shape (T=1, B=1; the scan ops on its elements as (T, N))."""
+    from snn_object_detectionddp_tpu_torch.kernels import ops
+    from snn_object_detectionddp_tpu_torch.models.lif import LIFParams
+
+    p = LIFParams()
+    name, (_, hh, ww, cc) = lif_shapes[0]
+    x4, a, b, v0 = lif_inputs((1, hh, ww, cc), 1, gen)
+    vpre, _, _, g_s, g_v = bwd_inputs(K, (1, hh, ww, cc), 1, p, gen)
+    flat = lambda t: t.reshape(1, -1)  # noqa: E731
+    cases = {
+        ops.affine_lif_fwd: (x4, a, b, v0, *p, True),
+        ops.affine_lif_fwd_res: (x4, a, b, v0, *p),
+        ops.affine_lif_bwd: (vpre, x4, a, g_s, g_v, *p),
+        ops.lif_scan_fwd: (flat(x4), v0.reshape(-1), *p),
+        ops.lif_scan_fwd_res: (flat(x4), v0.reshape(-1), *p),
+        ops.lif_scan_bwd: (flat(vpre), flat(g_s), g_v.reshape(-1), *p),
+    }
+    t0 = time.perf_counter()
+    for op, args in cases.items():
+        torch.library.opcheck(op, args)
+    print(f"[{card}] phase 14: opcheck of the six snn_torch operators on the card at {name}'s "
+          f"shape (1, {hh}, {ww}, {cc}) bf16: all pass ({time.perf_counter() - t0:.1f} s)")
+
+
+def export_and_reload(card, K, KL, n_blocks, det, params, seq_len, scratch, rng) -> dict:
+    """Export the streaming pair and the batch program of the default
+    model (no launch while tracing), run the saved files in a child
+    process (no jax/flax/msgpack/cv2/yaml imported; one A1 launch per
+    spiking block an exported frame), hold them to the eager path, and time an exported
+    B=1 frame against the eager DetectionService step in turns. Returns
+    the in-process launches."""
+    from snn_object_detectionddp_tpu_torch.serve import DetectionService
+    from snn_object_detectionddp_tpu_torch.utils import export as X
+
+    h, w = det.cfg.model.image_size
+    d = os.path.join(scratch, "export")
+    os.makedirs(d, exist_ok=True)
+    K.reset_launch_counts()
+    KL.reset_launch_counts()
+    t0 = time.perf_counter()
+    init_p, step_p = X.export_streaming(det, params, os.path.join(d, "init.pt2"),
+                                        os.path.join(d, "step.pt2"), batch=1, **EXPORT_NMS)
+    t_stream = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batch_p = X.export_serving(det, params, os.path.join(d, "batch.pt2"), batch=1,
+                               timesteps=seq_len, **EXPORT_NMS)
+    t_batch = time.perf_counter() - t0
+    traced = sum(K.launch_counts.values()) + sum(KL.launch_counts.values())
+    sizes = {os.path.basename(p): os.path.getsize(p) / 2**20 for p in (init_p, step_p, batch_p)}
+    print(f"[{card}] phase 14: exported the streaming pair (B=1, {h}x{w}) in {t_stream:.1f} s and "
+          f"the batch program (B=1, T={seq_len}) in {t_batch:.1f} s of wall time, "
+          f"{traced} kernel launches while tracing; .pt2 sizes "
+          + ", ".join(f"{k} {v:.1f} MiB" for k, v in sizes.items()))
+    if traced:
+        raise AssertionError(f"exporting launched {traced} kernels")
+
+    frames = np.stack([rng.randint(0, 256, size=(h, w, 3), dtype=np.uint8)
+                       for _ in range(max(N_EXPORT_FRAMES, seq_len))])
+    frames_p, out_p = os.path.join(d, "frames.npy"), os.path.join(d, "child.pt")
+    np.save(frames_p, frames)
+    proc, imports, wall = run_child("chip_smoke", ["--exported-child", init_p, step_p, batch_p,
+                                                   frames_p, out_p, str(seq_len)])
+    if proc.returncode != 0:
+        raise AssertionError(f"the exported-program child exited {proc.returncode}:\n"
+                             f"{proc.stdout[-4000:]}\n{child_errors(proc)[-4000:]}")
+    banned = banned_imports(imports)
+    if banned or not imports:
+        raise AssertionError(f"the exported-program child imported {banned[:10]} "
+                             f"({len(imports)} modules)")
+    report = json.loads(proc.stdout.strip().splitlines()[-1])
+    per_call = [c["affine_lif_fwd"] for c in report["launches"]]
+    others = sum(v for c in report["launches"] for k, v in c.items() if k != "affine_lif_fwd")
+    print(f"[{card}] phase 14: child ({len(imports)} modules, none of jax/flax/msgpack/cv2/yaml) "
+          f"loaded the three programs in {report['load_s']:.1f} s ({wall:.1f} s of wall time, "
+          f"process start included); A1 launches per exported frame {per_call[:-1]}, "
+          f"per batch call {per_call[-1]}, other kernels {others}")
+    if per_call != [n_blocks] * (N_EXPORT_FRAMES + 1) or others:
+        raise AssertionError(f"expected {n_blocks} A1 launches per exported call, got {per_call}")
+
+    child = torch.load(out_p, weights_only=True)
+    e_init, e_step = X.build_streaming_fns(det, params, **EXPORT_NMS)
+    e_batch = X.build_serving_fn(det, params, **EXPORT_NMS)
+    dev = det.device
+    inputs = [torch.from_numpy(frames[i : i + 1]).to(dev) for i in range(N_EXPORT_FRAMES)]
+    clip = torch.from_numpy(frames[None, :seq_len]).to(dev)
+    with torch.no_grad():
+        eager, state = [], None
+        for i, x in enumerate(inputs):
+            out, state = e_init(x) if i == 0 else e_step(x, state)
+            eager.append((out, state))
+        eager_clip = e_batch(clip)
+    pairs = [(f"frame {i}", child["frames"][i], eager[i]) for i in range(N_EXPORT_FRAMES)]
+    pairs.append(("batch program", child["clip"], eager_clip))
+    loaded_step = X.load_serving(step_p)
+    for tag, got, want in pairs:
+        got_t, want_t = tree_tensors(got), [t.cpu() for t in tree_tensors(want)]
+        if all(torch.equal(g, e) for g, e in zip(got_t, want_t)) and len(got_t) == len(want_t):
+            print(f"[{card}] phase 14: {tag} of the reloaded program in the child == eager, "
+                  f"bit for bit ({len(got_t)} tensors, detections and carried state)")
+            continue
+        if tag == "frame 1":
+            print(f"[{card}] phase 14: first difference, loaded step vs eager step on frame 1: "
+                  + first_difference(lambda: loaded_step.call(inputs[1], eager[0][1]),
+                                     lambda: e_step(inputs[1], eager[0][1])))
+        dets = got[0] if isinstance(got, tuple) else got
+        want_dets = want[0] if isinstance(want, tuple) else want
+        print(f"[{card}] phase 14: " + hold_detections(
+            dets, {k: v.cpu() for k, v in want_dets.items()}, f"{tag} (not bit-equal)"))
+
+    svc = DetectionService(det, params, max_batch=1, **EXPORT_NMS)
+    state1 = svc._zero_state1
+    img = frames[:1]
+    fns = {
+        "eager": lambda: svc._predict(img, (state1,)),
+        "exported": lambda: {k: v.cpu().numpy()
+                             for k, v in loaded_step.call(img, state1)[0].items()},
+    }
+    for fn in fns.values():
+        for _ in range(5):
+            fn()
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    wins = {k: [] for k in fns}
+    for r in range(EXPORT_WINDOWS):
+        for k in (("eager", "exported") if r % 2 == 0 else ("exported", "eager")):
+            wins[k] += host_windows(fns[k], 1, EXPORT_PER_WINDOW)
+    torch.cuda.synchronize()
+    launches = dict(K.launch_counts)
+    calls = 2 * EXPORT_WINDOWS * EXPORT_PER_WINDOW
+    print(f"[{card}] phase 14: host ms per B=1 frame, {EXPORT_WINDOWS} windows of "
+          f"{EXPORT_PER_WINDOW} each in turns (numpy in, numpy detections out): eager "
+          f"DetectionService step {spread([x for x, _ in wins['eager']])}, exported step program "
+          f"{spread([x for x, _ in wins['exported']])}; per window (wall, thread cpu) eager "
+          + ", ".join(f"({x:.3f}, {c:.3f})" for x, c in wins["eager"]) + "; exported "
+          + ", ".join(f"({x:.3f}, {c:.3f})" for x, c in wins["exported"])
+          + f"; A1 launches {launches['affine_lif_fwd']} over {calls} frames")
+    if launches["affine_lif_fwd"] != n_blocks * calls:
+        raise AssertionError(f"expected {n_blocks * calls} A1 launches, got {launches}")
+    for k, fn in fns.items():
+        print(f"[{card}] phase 14: host profile of the {k} B=1 frame, {N_HOST_PROFILED} calls: "
+              + host_profile(fn, N_HOST_PROFILED))
+    K.reset_launch_counts()  # the profiled calls are not in the count above
+    return launches
+
+
+def remat_flips(det, params, images, chunk: int) -> tuple[int, int]:
+    """Spikes that differ between the unchunked forward of a window and
+    the same window run in chunks of ``chunk`` steps with the state
+    carried, over every spiking block; and the number of spikes compared."""
+    from snn_object_detectionddp_tpu_torch.data.encoding import preprocess_video
+    from snn_object_detectionddp_tpu_torch.models.layers import SpikingConvBlock
+
+    frames = preprocess_video(torch.from_numpy(images).to(det.device), dtype=det.dtype)
+    record: dict = {}
+    hooks = [m.register_forward_hook(
+        lambda mod, inp, out, name=name: record.setdefault(name, []).append(out[0]))
+        for name, m in det.module.named_modules() if isinstance(m, SpikingConvBlock)]
+    try:
+        det.apply(params, frames)
+        whole = {k: v[0] for k, v in record.items()}
+        record.clear()
+        state = None
+        for i in range(0, frames.shape[0], chunk):
+            _, state = det.apply(params, frames[i : i + chunk], state)
+        parts = {k: torch.cat(v, 0) for k, v in record.items()}
+    finally:
+        for hk in hooks:
+            hk.remove()
+    return (sum(int((whole[k] != parts[k]).sum()) for k in whole),
+            sum(v.numel() for v in whole.values()))
+
+
+def remat_check(card, K, rng) -> dict:
+    """save_conv at full width: in f32 without TF32 the gradients of full
+    and save_conv remat (two chunks) against each other and against no
+    remat, at the served size and on a small window with no spike flip
+    between the chunked and the unchunked forward; in bf16 at T=10 B=2
+    (chunks of 5) the peak memory and step ms of the three. Returns the
+    launches of the timed bf16 steps."""
+    from snn_object_detectionddp_tpu_torch.config import Config
+    from snn_object_detectionddp_tpu_torch.models.detector import Detector, tf32_policy
+    from snn_object_detectionddp_tpu_torch.train.step import (
+        global_norm, init_state, make_optimizer, make_step_fns,
+    )
+
+    with tf32_policy("f32"):
+        cfg = Config()
+        cfg.runtime.precision = "f32"
+        h, w = cfg.model.image_size
+        det = Detector.from_config(cfg, device="cuda")
+        params = det.init_params(torch.Generator().manual_seed(SEED))
+        tx, sched = make_optimizer(1e-3, 100)
+        nc = cfg.model.num_classes
+        # At the served size, then on small windows (the model at full
+        # width, as gradient_check) until one has no spike flip.
+        windows = [lambda: moving_boxes_batch(rng, B_REMAT_F32, T_REMAT_F32, h, w, nc)]
+        windows += [lambda: moving_boxes_batch(rng, B_REMAT_F32, T_REMAT_F32, 64, 96, nc,
+                                               n_boxes=2, size=(1 / 2, 3 / 4), speed=2)
+                    ] * GRAD_ATTEMPTS
+        held = False
+        for attempt, make in enumerate(windows):
+            batch = make()
+            size = batch["images"].shape[2:4]
+            got = {}
+            for name, kw in REMAT_VARIANTS:
+                chunk = {"remat_chunk": CHUNK_F32} if kw else {}
+                grads, lc = make_step_fns(det, tx, sched, **chunk, **kw).grads(params, batch)
+                got[name] = (float(lc.total), float(global_norm(grads.values())), grads)
+            flips, n_spikes = remat_flips(det, params, batch["images"], CHUNK_F32)
+            full, sc = got["full"][2], got["save_conv"][2]
+            worst = max(((full[k] - sc[k]).abs().max().item(), k) for k in full)
+            equal = all(torch.equal(full[k], sc[k]) for k in full)
+            rel = {n: (abs(got[n][0] - got["none"][0]) / abs(got["none"][0]),
+                       abs(got[n][1] - got["none"][1]) / got["none"][1]) for n in ("full", "save_conv")}
+            print(f"[{card}] phase 14: save_conv check {attempt}, f32 without TF32, T={T_REMAT_F32} "
+                  f"B={B_REMAT_F32} {size[0]}x{size[1]}, remat_chunk {CHUNK_F32}: (loss, grad norm) "
+                  + ", ".join(f"{k} ({v[0]!r}, {v[1]!r})" for k, v in got.items())
+                  + f"; full vs save_conv: gradients "
+                  + ("bit-equal" if equal else f"largest difference {worst[0]:.3g} ({worst[1]})")
+                  + "; against no remat (loss, grad norm relative): "
+                  + ", ".join(f"{k} ({a:.3g}, {b:.3g})" for k, (a, b) in rel.items())
+                  + f"; {flips} of {n_spikes} spikes differ between the chunked and the "
+                  "unchunked forward")
+            if got["full"][0] != got["save_conv"][0]:
+                raise AssertionError("save_conv changed the loss of the full-remat step")
+            if flips == 0:
+                bad = {k: v for k, v in rel.items()
+                       if v[0] > REMAT_LOSS_RTOL or v[1] > REMAT_GNORM_RTOL}
+                if bad:
+                    raise AssertionError(f"remat against no remat on a flip-free window: {bad}")
+                held = True
+                if attempt:
+                    break
+        if not held:
+            raise AssertionError(f"every one of {GRAD_ATTEMPTS} small windows had a spike flip")
+        del det, params, got, full, sc
+        torch.cuda.empty_cache()
+
+    cfg = Config()  # bf16
+    det = Detector.from_config(cfg, device="cuda")
+    params = det.init_params(torch.Generator().manual_seed(SEED))
+    tx, sched = make_optimizer(1e-4, 1000)
+    state = init_state(params, tx, sched)
+    batch = moving_boxes_batch(rng, B_REMAT, T_REMAT, h, w, cfg.model.num_classes)
+    fns = {name: make_step_fns(det, tx, sched, **({"remat_chunk": CHUNK} if kw else {}), **kw)
+           for name, kw in REMAT_VARIANTS}
+    ms = {k: [] for k in fns}
+    peak, fb_peak = {}, {}
+    per_step = {}
+    launches = dict.fromkeys(K.KERNELS, 0)
+    for order in (list(fns), list(fns)[::-1]):
+        for name in order:
+            if name not in fb_peak:  # forward and backward alone, above the resident state
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                base = torch.cuda.memory_allocated()
+                fns[name].grads(state["params"], batch)
+                torch.cuda.synchronize()
+                fb_peak[name] = (torch.cuda.max_memory_allocated() - base) / 2**30
+            state, m = fns[name].train_step(state, batch)  # warm-up of this variant
+            torch.cuda.synchronize()
+            K.reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            for _ in range(N_REMAT_STEPS):
+                t0 = time.perf_counter()
+                state, m = fns[name].train_step(state, batch)
+                float(m["loss"])
+                torch.cuda.synchronize()
+                ms[name].append((time.perf_counter() - t0) * 1e3)
+            peak[name] = max(peak.get(name, 0.0), torch.cuda.max_memory_allocated() / 2**30)
+            per_step[name] = {k: v / N_REMAT_STEPS for k, v in K.launch_counts.items() if v}
+            for k, v in K.launch_counts.items():
+                launches[k] += v
+    print(f"[{card}] phase 14: bf16 train step, T={T_REMAT} B={B_REMAT} {h}x{w}"
+          f" (remat_chunk {CHUNK} for full and save_conv), {2 * N_REMAT_STEPS} steps a variant in "
+          "two passes (order reversed): "
+          + "; ".join(f"{k} peak {peak[k]:.3f} GiB (forward and backward alone "
+                      f"{fb_peak[k]:.3f} GiB above the resident state), ms/step {spread(ms[k])}, "
+                      f"launches/step {per_step[k]}" for k in fns))
+    return launches
+
+
+
+def run_export_phase(card, K, KL, lif_shapes, scratch, gen, rng) -> dict:
+    """Phase 14: the six operators under opcheck on the card, the serving
+    export of the default model reloaded in a child, and save_conv remat.
+    Returns the launches of the in-process path runs."""
+    from snn_object_detectionddp_tpu_torch.config import Config
+    from snn_object_detectionddp_tpu_torch.models.detector import Detector
+
+    t0 = time.perf_counter()
+    opcheck_on_card(card, K, lif_shapes, gen)
+    cfg = Config()  # yolo11m, 480x640, s2d4, ConvLSTM, bf16
+    det = Detector.from_config(cfg, device="cuda")
+    params = det.init_params(torch.Generator().manual_seed(SEED))
+    launches = export_and_reload(card, K, KL, len(lif_shapes), det, params,
+                                 cfg.dataset.test.seq_len, scratch, rng)
+    del det, params
+    torch.cuda.empty_cache()
+    for k, v in remat_check(card, K, rng).items():
+        launches[k] = launches.get(k, 0) + v
+    print(f"[{card}] phase 14 ok in {time.perf_counter() - t0:.1f} s")
+    return launches
+
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("chip_smoke.py needs a CUDA card (torch.cuda.is_available() is False)")
@@ -2551,6 +2998,10 @@ def main() -> None:
         # -- phase 8: tracker benchmark, learned flow, overlays (item 13) ---
         for k, v in run_side_pipelines_phase(card, K, KL, n_blocks, scratch).items():
             launches[k] += v
+        torch.cuda.empty_cache()
+        # -- phase 9: the operators, the serving export, save_conv (item 14)
+        for k, v in run_export_phase(card, K, KL, lif_shapes, scratch, gen, rng).items():
+            launches[k] += v
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
@@ -2596,4 +3047,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--exported-child"]:
+        exported_child(sys.argv[2:])
+    else:
+        main()

@@ -21,7 +21,9 @@ All three are bound by memory bytes and share one geometry, planned here
 in Python (:func:`fwd_plan`, :func:`bwd_plan`): a block owns a narrow tile
 of channels and a run of pixels of one sample. :class:`AffineLIF` ties the
 last two into a ``torch.autograd.Function``; models/lif.py::run_affine_lif_tb
-picks between it and the inference forward.
+picks between it and the inference forward. The model reaches the three
+through their operators in kernels/ops.py, which call these wrappers on a
+CUDA tensor.
 
 Build: kernels/build.py compiles the source with ``nvcc`` into a shared
 library with a plain C interface under ``build/kernels/`` at first use (a
@@ -43,6 +45,7 @@ import torch
 from ..models.lif import LIFParams, backward_cotangents
 from ..utils.debug import check_kernel_outputs
 from . import build as _build
+from . import ops
 
 SOURCE = "affine_lif.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -404,15 +407,16 @@ def empty_launch(device: torch.device, blocks: int = 1, threads: int = THREADS) 
 
 
 class AffineLIF(torch.autograd.Function):
-    """Differentiable normalize+LIF on the card: the forward launches
-    ``affine_lif_fwd_res`` and saves (v_pre, x, a); the backward launches
-    ``affine_lif_bwd``. ``a`` and ``b`` stay ordinary autograd functions
-    of the conv output and the GroupNorm parameters, so the gradient of
-    the statistics composes by the chain rule."""
+    """Differentiable normalize+LIF on the card: the forward calls the
+    operator ``snn_torch::affine_lif_fwd_res`` (kernels/ops.py) and saves
+    (v_pre, x, a); the backward calls ``snn_torch::affine_lif_bwd``.
+    ``a`` and ``b`` stay ordinary autograd functions of the conv output
+    and the GroupNorm parameters, so the gradient of the statistics
+    composes by the chain rule."""
 
     @staticmethod
     def forward(ctx, x4, a, b, v0, p: LIFParams):
-        s, vpre, vfin = affine_lif_fwd_res(x4, a, b, p, v0)
+        s, vpre, vfin = ops.affine_lif_fwd_res(x4, a, b, v0, *p)
         ctx.save_for_backward(vpre, x4, a)
         ctx.p = p
         return s, vfin
@@ -422,5 +426,5 @@ class AffineLIF(torch.autograd.Function):
     def backward(ctx, g_s, g_vfin):
         vpre, x4, a = ctx.saved_tensors
         g_s, g_vfin = backward_cotangents(x4, (a.shape[1],) + tuple(x4.shape[1:]), g_s, g_vfin)
-        g_x, g_a, g_b, g_v0 = affine_lif_bwd(vpre, x4, a, g_s, g_vfin, ctx.p)
+        g_x, g_a, g_b, g_v0 = ops.affine_lif_bwd(vpre, x4, a, g_s, g_vfin, *ctx.p)
         return g_x, g_a, g_b, g_v0, None

@@ -16,7 +16,9 @@ All three are bound by memory bytes. They take any (T, ...) shape as a
 contiguous (T, N) array with no padding and no copy: the launcher picks
 the widest vector that keeps every row aligned. :class:`LIFScan` ties the
 last two into a ``torch.autograd.Function``; models/lif.py::run_lif picks
-between it and the inference forward.
+between it and the inference forward. The model reaches the three through
+their operators in kernels/ops.py, which call these wrappers on a CUDA
+tensor.
 
 Build: kernels/build.py compiles the source with ``nvcc`` at first use.
 The plain versions of the same functions are in models/lif.py
@@ -32,6 +34,7 @@ import torch
 from ..models.lif import LIFParams, backward_cotangents
 from ..utils.debug import check_kernel_outputs
 from . import build as _build
+from . import ops
 
 SOURCE = "lif_scan.cu"
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
@@ -162,13 +165,13 @@ def lif_scan_bwd(
 
 
 class LIFScan(torch.autograd.Function):
-    """Differentiable LIF scan on the card: the forward launches
-    ``lif_scan_fwd_res`` and saves v_pre; the backward launches
-    ``lif_scan_bwd``."""
+    """Differentiable LIF scan on the card: the forward calls the operator
+    ``snn_torch::lif_scan_fwd_res`` (kernels/ops.py) and saves v_pre; the
+    backward calls ``snn_torch::lif_scan_bwd``."""
 
     @staticmethod
     def forward(ctx, x_t, v0, p: LIFParams):
-        s, vpre, vfin = lif_scan_fwd_res(x_t, p, v0)
+        s, vpre, vfin = ops.lif_scan_fwd_res(x_t, v0, *p)
         ctx.save_for_backward(vpre)
         ctx.p = p
         return s, vfin
@@ -178,5 +181,5 @@ class LIFScan(torch.autograd.Function):
     def backward(ctx, g_s, g_vfin):
         (vpre,) = ctx.saved_tensors
         g_s, g_vfin = backward_cotangents(vpre, tuple(vpre.shape[1:]), g_s, g_vfin)
-        g_x, g_v0 = lif_scan_bwd(vpre, g_s, g_vfin, ctx.p)
+        g_x, g_v0 = ops.lif_scan_bwd(vpre, g_s, g_vfin, *ctx.p)
         return g_x, g_v0, None

@@ -13,7 +13,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from .layers import conv2d_nhwc
+from .layers import CONV_OUT, conv2d_nhwc
 
 
 class ConvLSTM2d(nn.Module):
@@ -44,7 +44,7 @@ class ConvLSTM2d(nn.Module):
                                 device=x_t.device)
             state = (zeros, zeros)
         xb = x_t.reshape(t * b, h, w, in_ch).to(self.dtype)
-        x_gates = conv2d_nhwc(xb, self.gates_kernel[:, :in_ch])
+        x_gates = conv2d_nhwc(xb, self.gates_kernel[:, :in_ch], name=CONV_OUT)
         x_gates = x_gates.view(t, b, h, w, 4 * self.hidden)
         k_h = self.gates_kernel[:, in_ch:]
         h_state, c_state = state

@@ -25,6 +25,7 @@ dict (see models/detector.py) and each module fills its own with
 from __future__ import annotations
 
 import math
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -33,6 +34,11 @@ from torch import nn
 from .lif import LIFParams, run_affine_lif_tb
 
 GN_EPS = 1e-6
+# The name of the convs whose outputs train/step.py's remat_policy
+# "save_conv" keeps (the JAX package's checkpoint_name(..., "conv_out")):
+# the spiking blocks', the ConvBlocks' and the ConvLSTM's input half.
+CONV_OUT = "conv_out"
+_conv_name = threading.local()
 # flax truncated-normal initializers rescale by the std of a unit normal
 # truncated to [-2, 2].
 _TRUNC_STD = 0.87962566103423978
@@ -65,11 +71,19 @@ def same_pads(n: int, k: int, s: int) -> tuple[int, int]:
     return total // 2, total - total // 2
 
 
+def conv_name() -> str | None:
+    """The ``name`` of the :func:`conv2d_nhwc` call whose convolution this
+    thread is dispatching, None outside one: what a selective-checkpoint
+    policy reads at dispatch."""
+    return getattr(_conv_name, "value", None)
+
+
 def conv2d_nhwc(
     x: torch.Tensor,
     weight: torch.Tensor,
     stride: int = 1,
     f32_result: bool = False,
+    name: str | None = None,
 ) -> torch.Tensor:
     """SAME-padded 2D conv of an NHWC tensor with an OIHW kernel, computed
     in x's dtype; returns an NHWC-contiguous tensor. With ``f32_result``
@@ -78,7 +92,8 @@ def conv2d_nhwc(
     result", what the jitted JAX package computes where a bf16 conv feeds
     an fp32 consumer. Each product of two bf16 values is exact in fp32 (and
     in TF32), so only the summation order differs from a bf16 conv that
-    accumulates in fp32."""
+    accumulates in fp32. ``name`` marks the convolution for
+    :func:`conv_name` while it is dispatched."""
     kh, kw = weight.shape[-2:]
     ph, pw = same_pads(x.shape[1], kh, stride), same_pads(x.shape[2], kw, stride)
     if ph[0] == ph[1] and pw[0] == pw[1]:
@@ -89,7 +104,11 @@ def conv2d_nhwc(
     w = weight.to(dtype=x.dtype, memory_format=torch.channels_last)
     if f32_result:
         x, w = x.float(), w.float()
-    y = F.conv2d(x.permute(0, 3, 1, 2), w, None, stride, padding)
+    _conv_name.value = name
+    try:
+        y = F.conv2d(x.permute(0, 3, 1, 2), w, None, stride, padding)
+    finally:
+        _conv_name.value = None
     return y.permute(0, 2, 3, 1).contiguous()
 
 
@@ -153,7 +172,7 @@ class SpikingConvBlock(nn.Module):
         x = x_t.reshape((t * b,) + tuple(x_t.shape[2:])).to(self.dtype)
         # bf16: the group statistics read the conv's fp32 result, the LIF
         # stage its bf16 rounding (the jitted JAX block's optimized HLO)
-        xf = conv2d_nhwc(x, self.weight, self.stride, f32_result=True)
+        xf = conv2d_nhwc(x, self.weight, self.stride, f32_result=True, name=CONV_OUT)
         x = xf.to(self.dtype)
         c = self.features
         groups = _num_groups(c)
@@ -209,7 +228,8 @@ class ConvBlock(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         # bf16: GroupNorm normalizes the conv's fp32 result with statistics
         # of its bf16 rounding (the jitted JAX block's optimized HLO)
-        y = conv2d_nhwc(x.to(self.dtype), self.weight, self.stride, f32_result=True)
+        y = conv2d_nhwc(x.to(self.dtype), self.weight, self.stride, f32_result=True,
+                        name=CONV_OUT)
         x = group_norm_nhwc(y, _num_groups(self.features), self.gn_scale, self.gn_bias,
                             stats=y.to(self.dtype))
         return F.silu(x).to(self.dtype)

@@ -12,10 +12,13 @@ The membrane is fp32; spikes come back in the current's dtype.
 The normalize+LIF stage of every spiking block goes through
 :func:`run_affine_lif_tb`, which picks its implementation by the tensor's
 device and by whether a gradient is needed: on a CUDA tensor the
-hand-written kernels (kernels/affine_lif.py — forward, forward with the
-``v_pre`` residual, reverse-time backward), on a CPU tensor the plain
-versions in this module (:func:`affine_lif_tb_reference` and the
-functions it is built from). Kernel and plain version compute the same
+hand-written kernels (forward, forward with the ``v_pre`` residual,
+reverse-time backward), on a CPU tensor the plain versions in this module
+(:func:`affine_lif_tb_reference` and the functions it is built from). The
+kernels are the operators of kernels/ops.py (``torch.ops.snn_torch``),
+whose CPU implementations are these plain versions; the inference forward
+calls its operator on either device, so ``torch.export`` records one
+operator per spiking block. Kernel and plain version compute the same
 function: under a gradient both save the pre-reset membrane rounded to
 x's dtype and run the same reverse-time recurrence on it.
 
@@ -247,25 +250,31 @@ def run_affine_lif_tb(
     v0: torch.Tensor | None = None,
     with_readouts: bool = False,
 ):
-    """Normalize+LIF on the conv's (T*B, H, W, C) output. A CPU tensor
-    takes the plain version. Any other goes to the CUDA kernels, which
-    raise on what they cannot take: the residual-saving forward and the
-    reverse-time backward when a gradient is needed, the inference forward
-    (both resets, optional readouts) otherwise."""
-    if x4.device.type == "cpu":
+    """Normalize+LIF on the conv's (T*B, H, W, C) output. Without a
+    gradient, on any device, the operator ``snn_torch::affine_lif_fwd``
+    (kernels/ops.py: the CUDA kernel on a CUDA tensor, the plain version on
+    a CPU tensor; both resets, optional readouts). Under a gradient a CPU
+    tensor takes the plain autograd path, any other the residual-saving
+    forward and the reverse-time backward (kernels/affine_lif.py::AffineLIF),
+    which raise on what they cannot take."""
+    grad = needs_grad(x4, a, b, v0)
+    if grad and x4.device.type == "cpu":
         return affine_lif_tb_reference(x4, a, b, p, v0, with_readouts)
-    from ..kernels.affine_lif import AffineLIF, affine_lif_fwd
+    if grad and with_readouts:
+        raise NotImplementedError(
+            "per-step readouts are not differentiable in this port; run "
+            "all_steps forwards under torch.no_grad()"
+        )
+    if v0 is None:
+        v0 = _zero_membrane(x4, a.shape[1])
+    if grad:
+        from ..kernels.affine_lif import AffineLIF
 
-    if needs_grad(x4, a, b, v0):
-        if with_readouts:
-            raise NotImplementedError(
-                "per-step readouts are not differentiable in this port; run "
-                "all_steps forwards under torch.no_grad()"
-            )
-        if v0 is None:
-            v0 = _zero_membrane(x4, a.shape[1])
         return AffineLIF.apply(x4, a, b, v0, p)
-    return affine_lif_fwd(x4, a, b, p, v0, with_readouts)
+    from ..kernels import ops
+
+    s, v, reads = ops.affine_lif_fwd(x4, a, b, v0, *p, with_readouts)
+    return (s, v, reads) if with_readouts else (s, v)
 
 
 # ---------------------------------------------------------------------------
@@ -350,13 +359,14 @@ def run_lif(
     (fp32 or bf16): returns (spikes (T, ...) in x's dtype, final membrane
     (...) fp32). ``v0`` is an fp32 membrane of shape (...), zeros when None.
 
-    A CPU tensor takes the plain versions of this module. Any other goes to
-    the CUDA kernels of kernels/lif.py, which raise on what they cannot
-    take: the inference forward when nothing needs a gradient, else the
-    residual-saving forward with the reverse-time backward. The kernels
-    read a contiguous (T, N) array, so a strided view of ``x_t`` or ``v0``
-    is copied into a contiguous tensor first (one extra read and write of
-    it); the plain versions take any strides. Under a gradient both routes
+    Without a gradient the operator ``snn_torch::lif_scan_fwd`` runs on any
+    device (the CUDA kernel or, on a CPU tensor, the plain version). Under
+    a gradient a CPU tensor takes the plain autograd path, any other the
+    residual-saving forward with the reverse-time backward
+    (kernels/lif.py::LIFScan); the kernels raise on what they cannot take.
+    The kernels read a contiguous (T, N) array, so a strided view of
+    ``x_t`` or ``v0`` is copied into a contiguous tensor first (one extra
+    read and write of it); the plain versions take any strides. Under a gradient both routes
     save ``v_pre`` rounded to x's dtype, so in fp32 the gradients equal
     those of :func:`lif_scan` and in bf16 they carry that rounding."""
     if x_t.ndim < 1:
@@ -372,14 +382,14 @@ def run_lif(
     if p.reset not in ("soft", "hard"):
         raise ValueError(f"unknown reset '{p.reset}'")
     grad = needs_grad(x_t, v0)
-    if x_t.device.type == "cpu":
-        if grad:
-            return _LIFScanReference.apply(x_t, v0, p)
-        s, _, v = lif_forward_reference(x_t, p, v0)
-        return s, v
-    from ..kernels.lif import LIFScan, lif_scan_fwd
+    if x_t.device.type != "cpu":
+        x_t, v0 = x_t.contiguous(), v0.contiguous()
+    if not grad:
+        from ..kernels import ops
 
-    x_t, v0 = x_t.contiguous(), v0.contiguous()
-    if grad:
-        return LIFScan.apply(x_t, v0, p)
-    return lif_scan_fwd(x_t, p, v0)
+        return ops.lif_scan_fwd(x_t, v0, *p)
+    if x_t.device.type == "cpu":
+        return _LIFScanReference.apply(x_t, v0, p)
+    from ..kernels.lif import LIFScan
+
+    return LIFScan.apply(x_t, v0, p)

@@ -32,6 +32,35 @@ def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], idx[..., :k]
 
 
+def _fixed_point(sup: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
+    """Iterate ``keep -> valid & ~any_j(sup[j, i] & keep[j])`` from
+    ``valid`` to its fixed point. Eagerly a Python loop that stops when a
+    sweep changes nothing; while ``torch.export`` traces, the same sweeps
+    as a ``while_loop`` operator (the JAX package's ``lax.while_loop``),
+    which a program can hold where a branch on a tensor's value cannot be
+    traced. Both evaluate the same boolean sweeps, so their results are
+    equal."""
+
+    def sweep(keep):
+        return valid & ~(sup & keep[..., :, None]).any(-2)
+
+    if torch.compiler.is_exporting():
+        from torch._higher_order_ops import while_loop
+
+        def body(keep, changed):
+            new = sweep(keep)
+            return new, (new != keep).any()
+
+        first = torch.ones((), dtype=torch.bool, device=valid.device)
+        return while_loop(lambda keep, changed: changed.clone(), body, (valid.clone(), first))[0]
+    keep = valid
+    while True:
+        new = sweep(keep)
+        if torch.equal(new, keep):
+            return keep
+        keep = new
+
+
 def _nms_matrix(top_boxes, top_scores, top_cls, top_valid, iou_thres, max_det):
     """Suppression over the (B, k, k) IoU matrix. The recurrence ``keep[i]
     = valid[i] and no j < i with keep[j] and iou[j, i] > thr`` (candidates
@@ -47,12 +76,7 @@ def _nms_matrix(top_boxes, top_scores, top_cls, top_valid, iou_thres, max_det):
         # sup[b, j, i]: candidate j (higher-scoring, valid) overlaps i.
         sup = (iou > iou_thres) & (order[:, None] < order[None, :])
         sup = sup & top_valid[..., :, None]
-        keep = top_valid
-        while True:
-            new = top_valid & ~(sup & keep[..., :, None]).any(-2)
-            if torch.equal(new, keep):
-                break
-            keep = new
+        keep = _fixed_point(sup, top_valid)
     else:
         keep = torch.ones_like(top_valid)
         for i in range(k):

@@ -32,13 +32,20 @@ multiplies it.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Callable, NamedTuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+    noop_context_fn,
+)
 
 from ..data.encoding import preprocess_video
 from ..losses.detection import DetectionLoss, LossComponents
+from ..models.layers import CONV_OUT, conv_name
 from ..parallel.mesh import DataMesh, all_reduce_grads, refuse_unported_axes
 from .schedule import onecycle_lr
 
@@ -169,6 +176,18 @@ def init_state(params: dict, tx: Optimizer, schedule=None) -> dict:
     }
 
 
+def save_conv_policy(ctx, func, *args, **kwargs) -> CheckpointPolicy:
+    """Selective-checkpoint policy of ``remat_policy="save_conv"``: keep
+    the output of every convolution dispatched under the name ``conv_out``
+    (models/layers.py::CONV_OUT: the spiking blocks', the ConvBlocks' and
+    the ConvLSTM's input half, the JAX package's
+    ``save_only_these_names("conv_out")``) and recompute everything else:
+    the other convs, GroupNorm, the LIF operators, the gate math."""
+    if func is torch.ops.aten.convolution.default and conv_name() == CONV_OUT:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 class TrainStepFns(NamedTuple):
     train_step: Callable  # (state, batch) -> (state, metrics)
     eval_step: Callable  # (params, batch) -> metrics
@@ -206,8 +225,11 @@ def make_step_fns(
     T must be a multiple of ``remat_chunk``. ``remat`` (bool) checkpoints
     the whole forward instead.
 
-    ``remat_policy="save_conv"`` (keep the conv outputs, recompute the
-    elementwise chain) is not ported and raises.
+    ``remat_policy``: what a checkpoint region (``remat_chunk`` or
+    ``remat``) keeps for the backward. ``"full"`` (default) keeps its
+    inputs only and recomputes the whole region; ``"save_conv"`` also keeps
+    the outputs of the convs named ``conv_out`` (:func:`save_conv_policy`)
+    and recomputes the cheaper rest.
 
     ``mesh``: a data mesh (parallel/mesh.py::make_mesh). Each process feeds
     its local batch; the loss is the global-batch loss, gradients are summed
@@ -216,11 +238,11 @@ def make_step_fns(
     process splits its local batch into microbatches, and microbatch ``i``
     is normalised over the ``i``-th microbatches of all processes together.
     """
-    if remat_policy == "save_conv":
-        raise NotImplementedError(
-            "remat_policy='save_conv' is not ported; use 'full'"
-        )
-    if remat_policy not in (None, "", "full"):
+    if remat_policy in (None, "", "full"):
+        context_fn = noop_context_fn
+    elif remat_policy == "save_conv":
+        context_fn = partial(create_selective_checkpoint_contexts, save_conv_policy)
+    else:
         raise ValueError(f"unknown remat_policy '{remat_policy}' (full|save_conv)")
     cfg = detector.cfg
     refuse_unported_axes(cfg.mesh, train=True)
@@ -231,7 +253,7 @@ def make_step_fns(
     in_dtype = detector.dtype
 
     def _ckpt(fn, *args):
-        return checkpoint(fn, *args, use_reentrant=False)
+        return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
 
     if remat_chunk:
 

@@ -6,10 +6,10 @@ The port's counterpart of the JAX package's ``utils/debug.py``:
   forward as in the backward, raises ``FloatingPointError`` naming it,
   as ``jax_debug_nans`` does. A ``TorchDispatchMode`` looks at each
   floating output (``torch.autograd.set_detect_anomaly`` would check the
-  backward only). The hand-written kernels are called past the
-  dispatcher, so their wrappers (kernels/affine_lif.py, kernels/lif.py)
-  hand their outputs to :func:`check_kernel_outputs`, which returns at
-  once while debugging is off.
+  backward only). The hand-written kernels' wrappers
+  (kernels/affine_lif.py, kernels/lif.py) also hand their outputs to
+  :func:`check_kernel_outputs`, which returns at once while debugging is
+  off: a wrapper called directly passes no operator the mode sees.
 - :func:`checked`: a wrapped function that raises on a non-finite output
   of any operator, or an index out of bounds, at the operator.
 

@@ -106,6 +106,25 @@ def test_train_code_writes_checkpoints_and_resumes(tree, tmp_path):
     assert all(torch.isfinite(v).all() for v in state["params"].values())
 
 
+@pytest.mark.parametrize("remat", [dict(remat_chunk=2), dict(remat=True)], ids=["chunk", "whole"])
+def test_save_conv_remat_trains_through_the_command_line(tree, tmp_path, remat):
+    """``training.remat_policy: save_conv`` with ``remat_chunk`` and with
+    ``remat``: the epoch ends where the plain one does, bit for bit (one
+    checkpoint region per window: the same operators, recomputed on the
+    CPU)."""
+    cfg = _tiny(tconfig, tree, tmp_path / "plain")
+    det = Detector.from_config(cfg, device="cpu")
+    plain = main.train_code(cfg, det)["params"]
+    cfg = _tiny(tconfig, tree, tmp_path / "remat")
+    cfg.training.remat_policy = "save_conv"
+    for key, value in remat.items():
+        setattr(cfg.training, key, value)
+    state = main.train_code(cfg, det)
+    assert state["step"] == 4
+    for k, v in plain.items():
+        assert torch.equal(state["params"][k], v), k
+
+
 def test_frozen_backbone_from_a_transferred_checkpoint(tree, tmp_path):
     """``backbone_init`` loads the backbone of another checkpoint on a
     fresh start; ``freeze_backbone`` then keeps it exactly, while the rest

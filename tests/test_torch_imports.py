@@ -194,13 +194,17 @@ def test_entry_points_default_to_cuda():
 
 def test_run_lif_takes_the_card_for_a_cuda_tensor_and_never_the_plain_version():
     """run_lif picks its route by the tensor's device alone: a CPU tensor
-    runs the plain version; any other device goes to the kernel wrappers,
-    which raise on what they cannot take (here a meta tensor stands in for
-    a card this machine may not have). Without a card a CUDA request
-    raises when the tensor is made, before run_lif is reached."""
+    runs the plain version; any other device goes to the operators of
+    kernels/ops.py, whose dispatcher sends a CUDA tensor to the kernel
+    wrappers and a meta tensor (standing in for a card this machine may
+    not have) to the fake implementation: shapes only, no launch, and
+    never the plain version. The wrappers themselves raise on a tensor off
+    the card. Without a card a CUDA request raises when the tensor is
+    made, before run_lif is reached."""
     import torch
 
     from snn_object_detectionddp_tpu_torch.kernels import lif as kernels_lif
+    from snn_object_detectionddp_tpu_torch.kernels import ops
     from snn_object_detectionddp_tpu_torch.models.lif import LIFParams, run_lif
 
     x = torch.zeros(2, 3, 4)
@@ -208,10 +212,25 @@ def test_run_lif_takes_the_card_for_a_cuda_tensor_and_never_the_plain_version():
     s, v = run_lif(x, LIFParams())
     assert s.device.type == v.device.type == "cpu"
     assert kernels_lif.launch_counts == before  # no launch counted off the card
-    for grad in (False, True):
-        xm = torch.zeros(2, 3, 4, device="meta", requires_grad=grad)
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a meta tensor reached the plain version")
+
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("lif_forward_reference", "lif_backward_reference"):
+            mp.setattr(ops, name, refuse)
+        for grad in (False, True):
+            xm = torch.zeros(2, 3, 4, device="meta", requires_grad=grad)
+            s, v = run_lif(xm, LIFParams())
+            assert s.is_meta and v.is_meta and s.shape == (2, 3, 4) and v.shape == (3, 4)
+            if grad:
+                (gx,) = torch.autograd.grad((s, v), xm, (torch.ones_like(s), torch.ones_like(v)))
+                assert gx.is_meta and gx.shape == xm.shape
+    assert kernels_lif.launch_counts == before
+    for call in (lambda xm: kernels_lif.lif_scan_fwd(xm, LIFParams()),
+                 lambda xm: kernels_lif.lif_scan_fwd_res(xm, LIFParams())):
         with pytest.raises(ValueError, match="needs CUDA tensors"):
-            run_lif(xm, LIFParams())
+            call(torch.zeros(2, 3, 4, device="meta"))
     if not torch.cuda.is_available():
         with pytest.raises((RuntimeError, AssertionError)):
             torch.zeros(2, 3, 4, device="cuda")

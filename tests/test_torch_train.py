@@ -28,7 +28,9 @@ import numpy as np
 import optax
 import pytest
 import torch
+import torch.utils.checkpoint
 from flax import serialization
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from snn_object_detectionddp_tpu import config as jconfig
 from snn_object_detectionddp_tpu.data import encoding as jenc
@@ -45,6 +47,7 @@ from snn_object_detectionddp_tpu_torch.convert import (
     train_state_from_jax,
 )
 from snn_object_detectionddp_tpu_torch.models.detector import Detector as TDetector
+from snn_object_detectionddp_tpu_torch.models.layers import CONV_OUT, conv_name
 from snn_object_detectionddp_tpu_torch.train import param_groups as tgroups
 from snn_object_detectionddp_tpu_torch.train import schedule as tsched
 from snn_object_detectionddp_tpu_torch.train import step as tstep
@@ -273,7 +276,9 @@ def test_train_step_reduces_loss_and_updates_in_place(setup):
 
 
 @pytest.mark.parametrize("kwargs", [dict(remat=True), dict(remat_chunk=1), dict(remat_chunk=2),
-                                    dict(grad_accum=2), dict(grad_accum=2, remat_chunk=1)],
+                                    dict(grad_accum=2), dict(grad_accum=2, remat_chunk=1),
+                                    dict(remat=True, remat_policy="save_conv"),
+                                    dict(remat_chunk=1, remat_policy="save_conv")],
                          ids=lambda k: "-".join(f"{a}{b}" for a, b in k.items()))
 def test_remat_and_accumulation_reproduce_the_plain_step(setup, kwargs):
     """Same loss, gradient norm and first moment (linear in the gradient)
@@ -299,8 +304,8 @@ def test_step_options_that_raise(setup):
         tstep.make_step_fns(tdet, ttx, sch, remat_chunk=2).train_step(state, _batch(3, t=3))
     with pytest.raises(ValueError, match="grad_accum"):
         tstep.make_step_fns(tdet, ttx, sch, grad_accum=2).train_step(state, _batch(3, b=3))
-    with pytest.raises(NotImplementedError, match="save_conv"):
-        tstep.make_step_fns(tdet, ttx, sch, remat_policy="save_conv")
+    # save_conv builds (it is trained and counted in the tests below)
+    assert callable(tstep.make_step_fns(tdet, ttx, sch, remat_policy="save_conv").train_step)
     with pytest.raises(ValueError, match="remat_policy"):
         tstep.make_step_fns(tdet, ttx, sch, remat_policy="half")
     for key, val in (("spatial", 2), ("fsdp", True), ("tensor", 2)):
@@ -308,6 +313,76 @@ def test_step_options_that_raise(setup):
         setattr(cfg.mesh, key, val)
         with pytest.raises(NotImplementedError, match="mesh"):
             tstep.make_step_fns(TDetector.from_config(cfg, device="cpu"), ttx, sch)
+
+
+@pytest.fixture(scope="module")
+def long_window(setup):
+    """A T=4 batch and the unchunked step's loss and gradients on it."""
+    batch = _batch(5, t=4)
+    params = setup["fresh_tstate"]()["params"]
+    grads, lc = setup["fns"].grads(params, batch)
+    return batch, params, grads, lc
+
+
+@pytest.mark.parametrize("chunk", [2, 4])
+def test_save_conv_matches_the_unchunked_step(setup, long_window, chunk):
+    """remat_policy="save_conv" under chunked remat: the same loss (1e-5
+    relative) and every gradient (1e-4 relative, plus 1e-6 of the leaf's
+    largest entry for entries near 0) as the unchunked step, which
+    test_model_gradients_match_jax holds to JAX. fp32 reassociation only:
+    the chunks carry the same state."""
+    batch, params, want, lc0 = long_window
+    fns = tstep.make_step_fns(setup["tdet"], setup["ttx"], setup["tschedule"],
+                              remat_chunk=chunk, remat_policy="save_conv")
+    got, lc = fns.grads(params, batch)
+    for name in ("total", "box", "cls", "dfl"):
+        np.testing.assert_allclose(float(getattr(lc, name)), float(getattr(lc0, name)),
+                                   rtol=1e-5, err_msg=name)
+    assert set(got) == set(want)
+    for k, w in want.items():
+        np.testing.assert_allclose(got[k].numpy(), w.numpy(), rtol=1e-4,
+                                   atol=1e-6 * float(w.abs().max()), err_msg=k)
+
+
+class _ConvCount(TorchDispatchMode):
+    """Counts the convolutions dispatched, by phase (the forward, or the
+    backward that recomputes a checkpoint region) and by whether they run
+    under the name ``conv_out``."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        if func is torch.ops.aten.convolution.default:
+            key = ("backward" if torch._C._current_graph_task_id() != -1 else "forward",
+                   conv_name() == CONV_OUT)
+            self.n[key] = self.n.get(key, 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+@pytest.mark.parametrize("remat", [dict(remat_chunk=2), dict(remat=True)],
+                         ids=["chunk2", "whole"])
+@pytest.mark.parametrize("policy", ["full", "save_conv"])
+def test_save_conv_recomputes_only_the_untagged_convs(setup, long_window, remat, policy):
+    """The backward recomputes every conv of the forward under "full" and
+    only those not named conv_out under "save_conv" (the JAX package's
+    three checkpoint_name sites: spiking blocks, ConvBlocks, the ConvLSTM's
+    input half). Early stopping is off, so a recompute runs its whole
+    region."""
+    batch, params, _, _ = long_window
+    fns = tstep.make_step_fns(setup["tdet"], setup["ttx"], setup["tschedule"],
+                              remat_policy=policy, **remat)
+    with torch.utils.checkpoint.set_checkpoint_early_stop(False), _ConvCount() as count:
+        fns.grads(params, batch)
+    fwd_tagged, fwd_other = count.n[("forward", True)], count.n[("forward", False)]
+    assert fwd_tagged > 0 and fwd_other > 0
+    recomputed = {True: count.n.get(("backward", True), 0),
+                  False: count.n.get(("backward", False), 0)}
+    if policy == "full":
+        assert recomputed == {True: fwd_tagged, False: fwd_other}
+    else:
+        assert recomputed == {True: 0, False: fwd_other}
 
 
 def test_frozen_backbone_step(setup):
