@@ -134,6 +134,20 @@ Run from the repository root:  python3 chip_smoke.py
    relative), and in bf16 (T=10, B=2, chunks of 5) the peak memory, ms
    and launches of a train step under no remat, "full" and "save_conv".
 
+15. FSDP and tensor parallelism (parallel/mesh.py parts (c) and (e)): A1
+   against its plain version bit for bit at every spiking block's C/2 and
+   C/4 channel shard (B=1 T=1 and T=5 B=2), printing the shards that take
+   the scalar path with their us beside the byte bound; the FSDP step over
+   a one-rank NCCL group (default model, bf16, T=5 B=2) bit-equal to the
+   library step (loss, grad_norm, parameters and moments) with 20 A2 + 20
+   A3 launches and the state bytes it keeps; an epoch of main with
+   mesh.fsdp: true through torchrun on the data phase's tree, whose
+   latest.pt has the data-parallel run's leaves and shapes; make_predict_fn over a
+   tensor axis of 1 bit-equal to the plain predict; and with two or more
+   cards, scripts/torch_parallel_cards.py --quick under torchrun on two
+   processes (the FSDP step and the tensor-parallel predict against one
+   card); with one card it prints that it skipped them and why.
+
 The bf16 phases run under set_tf32_policy("bf16"), as the command lines
 set it for the default model; the fp32 checks (4, 6, 7's card against
 CPU and 14's save_conv check) run inside tf32_policy("f32").
@@ -1622,21 +1636,192 @@ def dp_step_check(card, K, n_blocks, rng) -> dict:
         torch.distributed.destroy_process_group()
 
 
-def torchrun_epoch(card, scratch) -> str:
+def run_parallel_axes_phase(card, K, n_blocks, lif_shapes, gen, rng, scratch) -> dict:
+    """Item 15: FSDP and tensor parallelism (parallel/mesh.py parts (c)
+    and (e)). Returns the launches of its main-path runs (the FSDP step and
+    the tensor-mesh forwards)."""
+    from snn_object_detectionddp_tpu_torch.config import Config
+    from snn_object_detectionddp_tpu_torch.evals.validator import make_predict_fn
+    from snn_object_detectionddp_tpu_torch.models.detector import Detector
+    from snn_object_detectionddp_tpu_torch.models.lif import LIFParams, affine_lif_tb_reference
+    from snn_object_detectionddp_tpu_torch.parallel import mesh as pmesh
+    from snn_object_detectionddp_tpu_torch.train.step import (
+        init_state,
+        make_optimizer,
+        make_step_fns,
+    )
+
+    t_phase = time.perf_counter()
+    launches = dict.fromkeys(K.KERNELS, 0)
+    # (iii) A1 at every spiking block's C/2 and C/4 shard (a tensor group of
+    # 2 or 4 runs each block on these widths), B=1 T=1 and T=5 B=2, bit for
+    # bit against the plain version; the widths whose C is no multiple of
+    # the 8-channel vector take the scalar path.
+    p = LIFParams()
+    scalar, n_shapes = [], 0
+    for name, (_, hh, ww, cc) in lif_shapes:
+        for k in (2, 4):
+            c = cc // k
+            for t_steps, bsz in ((1, 1), (T_TRAIN, B_TRAIN)):
+                x4, a, b, v0 = lif_inputs((bsz, hh, ww, c), t_steps, gen)
+                got = K.affine_lif_fwd(x4, a, b, p, v0, False)
+                ref = affine_lif_tb_reference(x4, a, b, p, v0, False)
+                torch.cuda.synchronize()
+                if not (torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])):
+                    raise AssertionError(f"A1 at the C/{k} shard of {name} ({hh}x{ww}x{c}) T="
+                                         f"{t_steps} B={bsz} is not bit-equal to the plain version")
+                n_shapes += 1
+                if t_steps == 1 and K.fwd_plan(bsz, hh * ww, c, x4.dtype, True).vec == 1:
+                    nbytes = lif_bytes(hh * ww * c, 1, c, 1, False)
+                    make = lambda s=(1, hh, ww, c): lif_inputs(s, 1, gen)  # noqa: E731
+                    us = time_cuda(lambda *t: K.affine_lif_fwd(*t[:3], p, t[3]), make, nbytes) * 1e3
+                    scalar.append(f"{name} C/{k}={c} ({hh}x{ww}): {us:.2f} us, bound "
+                                  f"{nbytes / HBM_BYTES_PER_S * 1e6:.2f} us")
+    print(f"[{card}] phase 15: A1 at the C/2 and C/4 channel shards of the {n_blocks} blocks, "
+          f"{n_shapes} shapes (B=1 T=1 and T={T_TRAIN} B={B_TRAIN}): bit-equal to the plain "
+          f"version; scalar path (C not a multiple of 8) at B=1 T=1: "
+          + ("; ".join(scalar) if scalar else "none"))
+
+    torch.cuda.set_device(0)
+    pmesh.init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        pmesh.collective_barrier("cuda")
+        mesh = pmesh.make_mesh()
+        cfg = Config()  # yolo11m, 480x640, s2d4, ConvLSTM, bf16
+        h, w = cfg.model.image_size
+        det = Detector.from_config(cfg, device="cuda")
+        params = det.init_params(torch.Generator().manual_seed(SEED + 5))
+        tr = cfg.training
+        tx, sched = make_optimizer(tr.learning_rate, 10, tr.weight_decay, tr.grad_clip_norm,
+                                   tr.pct_start)
+        # (i) FSDP over a one-rank NCCL group against the library step: the
+        # all-gather and reduce-scatter over one rank are copies and every
+        # leaf's chunk is the leaf flattened, so one step is bit-equal.
+        library = make_step_fns(det, tx, sched)
+        fsdp = make_step_fns(det, tx, sched, mesh=mesh, fsdp=True)
+        clone = lambda: {k: v.clone() for k, v in params.items()}  # noqa: E731
+        st_lib = init_state(clone(), tx, sched)
+        st_f = fsdp.shard_state(init_state(clone(), tx, sched))
+        kept = sum(t.numel() * t.element_size()
+                   for part in (st_f["params"], st_f["opt_state"]["mu"], st_f["opt_state"]["nu"])
+                   for t in part.values())
+        batch = moving_boxes_batch(rng, B_TRAIN, T_TRAIN, h, w, cfg.model.num_classes)
+        K.reset_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        st_f, m_f = fsdp.train_step(st_f, batch)
+        torch.cuda.synchronize()
+        f_ms = (time.perf_counter() - t0) * 1e3
+        got = dict(K.launch_counts)
+        want = {"affine_lif_fwd": 0, "affine_lif_fwd_res": n_blocks, "affine_lif_bwd": n_blocks}
+        if got != want:
+            raise AssertionError(f"the FSDP step launched {got}, want {want}")
+        for k_ in launches:
+            launches[k_] += got[k_]
+        st_lib, m_lib = library.train_step(st_lib, batch)
+        m_f = {k_: float(v) for k_, v in m_f.items()}
+        m_lib = {k_: float(v) for k_, v in m_lib.items()}
+        whole = fsdp.gather_state(st_f)
+        diffs = [f"{part} {k_}" for part in ("params", "mu", "nu") for k_, v in (
+            st_lib["params"] if part == "params" else st_lib["opt_state"][part]).items()
+            if not torch.equal(v, whole["params"][k_] if part == "params"
+                               else whole["opt_state"][part][k_])]
+        if m_f != m_lib or diffs:
+            raise AssertionError(f"FSDP over one rank is not bit-equal to the library step: "
+                                 f"metrics {m_f} vs {m_lib}; {len(diffs)} tensors differ "
+                                 f"({diffs[:4]})")
+        print(f"[{card}] phase 15: FSDP step (one-rank NCCL group, make_step_fns(mesh=make_mesh(), "
+              f"fsdp=True)) vs the library step, full width {cfg.model.yolo_model_name} {h}x{w} "
+              f"bf16, T={T_TRAIN} B={B_TRAIN}: bit-equal loss {m_f['loss']:.6f}, grad_norm "
+              f"{m_f['grad_norm']:.4f}, parameters, mu and nu; launches {got}; state kept "
+              f"{kept} bytes (parameters + moments, the whole at one rank); host {f_ms:.1f} ms")
+        del st_lib, st_f, whole, library, fsdp
+        torch.cuda.empty_cache()
+
+        # (ii) The tensor-mesh entry points over a tensor axis of 1:
+        # make_predict_fn(mesh=) and a DetectionService(mesh=) equal the
+        # plain ones bit for bit.
+        tmesh = pmesh.make_mesh(1, tensor=1)
+        images = rng.randint(0, 256, size=(1, T_TRAIN, h, w, 3), dtype=np.uint8)
+        K.reset_launch_counts()
+        got_p = make_predict_fn(det, mesh=tmesh)(pmesh.tp_shard_params(params, tmesh), images)
+        torch.cuda.synchronize()
+        a1 = K.launch_counts["affine_lif_fwd"]
+        launches["affine_lif_fwd"] += a1
+        want_p = make_predict_fn(det)(params, images)
+        if a1 != n_blocks or not all(torch.equal(got_p[k_], v) for k_, v in want_p.items()):
+            raise AssertionError(f"predict over a tensor axis of 1: {a1} A1 launches, outputs "
+                                 f"equal {[torch.equal(got_p[k_], v) for k_, v in want_p.items()]}")
+        print(f"[{card}] phase 15: make_predict_fn(mesh=make_mesh(1, tensor=1)) T={T_TRAIN} B=1: "
+              f"bit-equal to the plain predict ({int(want_p['valid'].sum())} kept), {a1} A1 "
+              f"launches")
+        del det, params
+        torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags[:2]
+        torch.use_deterministic_algorithms(flags[2])
+        torch.distributed.destroy_process_group()
+
+    # (iii b) mesh.fsdp through torchrun and main on the data phase's tree:
+    # its checkpoints hold the whole state, in the format of the
+    # data-parallel run's (same leaves, same shapes).
+    fsdp_latest = torch.load(os.path.join(os.path.dirname(torchrun_epoch(card, scratch, fsdp=True)),
+                                          "latest.pt"), map_location="cpu", weights_only=True)
+    dp_latest = torch.load(os.path.join(scratch, "dp_run", "latest.pt"), map_location="cpu",
+                           weights_only=True)
+    shapes = lambda c: {k: tuple(v.shape) for k, v in c["state"]["params"].items()}  # noqa: E731
+    if shapes(fsdp_latest) != shapes(dp_latest) or shapes(fsdp_latest) != {
+            k: tuple(v.shape) for k, v in fsdp_latest["state"]["opt_state"]["mu"].items()}:
+        raise AssertionError("the FSDP run's latest.pt is not in the data-parallel run's format")
+    print(f"[{card}] phase 15: the mesh.fsdp run's latest.pt holds the whole state: "
+          f"{len(shapes(fsdp_latest))} leaves of the data-parallel run's shapes")
+    del fsdp_latest, dp_latest
+
+    # (iv) Two cards: the FSDP step and the tensor-parallel predict over two
+    # processes against one card (scripts/torch_parallel_cards.py --quick).
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"[{card}] phase 15: the two-card FSDP and tensor-parallel checks skipped: "
+              f"torch.cuda.device_count() is {n_cards} (scripts/torch_parallel_cards.py runs "
+              "them on a host with several cards)")
+    else:
+        script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                              "torch_parallel_cards.py")
+        for only in ("fsdp", "tensor"):
+            proc = subprocess.run(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone",
+                 "--nproc_per_node", "2", script, "--quick", "--only", only],
+                capture_output=True, text=True, timeout=600)
+            if proc.returncode:
+                raise AssertionError(f"two-card {only} check failed:\n{proc.stdout[-3000:]}\n"
+                                     f"{proc.stderr[-3000:]}")
+            print(f"[{card}] phase 15: two cards, {only}: {proc.stdout.strip().splitlines()[-1]}")
+    print(f"phase 15 ok in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def torchrun_epoch(card, scratch, fsdp: bool = False) -> str:
     """(ii) One epoch of the command line through torchrun (one process,
     NCCL) on the data phase's tree, the config read without PyYAML: the
     child's import log (PYTHONPROFILEIMPORTTIME) must name no yaml module.
-    Rank 0 writes the checkpoints. Returns the best.pt path."""
+    Rank 0 writes the checkpoints. With ``fsdp`` the config sets
+    ``mesh.fsdp: true``. Returns the best.pt path."""
     root = os.path.join(scratch, "dsec", "train")
-    save_dir = os.path.join(scratch, "dp_run")
-    cfg_path = os.path.join(scratch, "dp_config.yaml")
+    run = "fsdp" if fsdp else "dp"
+    save_dir = os.path.join(scratch, f"{run}_run")
+    cfg_path = os.path.join(scratch, f"{run}_config.yaml")
     split = "\n".join(f"  {s}:\n    path: \"{root}\"\n    seq_len: {T_TRAIN}"
                       for s in ("train", "val", "test"))
     with open(cfg_path, "w") as f:
         f.write(f"# one epoch of the default model through torchrun\ndataset:\n{split}\n"
                 f"mode: \"train\"\ntraining:\n  batch_size: {B_TRAIN}\n  num_workers: "
                 f"{DATA_THREADS}\n  epochs: 1\n  save_dir: \"{save_dir}\"\n  weights_path: "
-                f"\"{save_dir}/latest.pt\"\nmesh:\n  data: -1  # the whole process group\n")
+                f"\"{save_dir}/latest.pt\"\nmesh:\n  data: -1  # the whole process group\n"
+                + ("  fsdp: true\n" if fsdp else ""))
     repo = os.path.dirname(os.path.abspath(__file__))
     env = dict(os.environ, PYTHONPROFILEIMPORTTIME="1",
                PYTHONPATH=repo + os.pathsep + os.environ.get("PYTHONPATH", ""))
@@ -1657,7 +1842,8 @@ def torchrun_epoch(card, scratch) -> str:
                              f"{len(imports)} modules)")
     log = proc.stdout
     needed = ("torch.distributed initialized (nccl): process 0/1", "--- Epoch 1/1 ---",
-              "Training finished!", "Best checkpoint written")
+              "Training finished!", "Best checkpoint written") + (
+              ("FSDP over 1 process(es): this rank keeps",) if fsdp else ())
     if not all(n in log for n in needed):
         raise AssertionError(f"torchrun log lacks {[n for n in needed if n not in log]}:\n{log[-4000:]}")
     best = os.path.join(save_dir, "best.pt")
@@ -1669,11 +1855,12 @@ def torchrun_epoch(card, scratch) -> str:
     here = ("installed on this machine, not imported by the child"
             if importlib.util.find_spec("yaml") else "not installed on this machine")
     print(f"[{card}] torchrun --standalone --nproc_per_node 1 -m snn_object_detectionddp_tpu_torch.main "
-          f"--config (YAML subset reader; PyYAML {here}; {len(imports)} modules imported, none "
+          f"--config{' (mesh.fsdp: true)' if fsdp else ''} (YAML subset reader; PyYAML {here}; {len(imports)} modules imported, none "
           f"of yaml): one epoch on the 480x640 tree in {wall:.1f} s of wall time, child and "
           f"launcher start included; rank 0 wrote latest.pt (epoch 0, step 5) and best.pt; log: "
           + " | ".join(l for l in log.splitlines()
-                       if l.startswith(("torch.distributed", "Total", "Average", "New best"))))
+                       if l.startswith(("torch.distributed", "Total", "Average", "New best",
+                                        "FSDP"))))
     return best
 
 
@@ -3001,6 +3188,11 @@ def main() -> None:
         torch.cuda.empty_cache()
         # -- phase 9: the operators, the serving export, save_conv (item 14)
         for k, v in run_export_phase(card, K, KL, lif_shapes, scratch, gen, rng).items():
+            launches[k] += v
+        torch.cuda.empty_cache()
+        # -- phase 10: FSDP and tensor parallelism (item 15) ----------------
+        for k, v in run_parallel_axes_phase(card, K, n_blocks, lif_shapes, gen, rng,
+                                            scratch).items():
             launches[k] += v
     finally:
         shutil.rmtree(scratch, ignore_errors=True)

@@ -11,7 +11,9 @@ seeded validation split, run the recurrent model, NMS (conf 0.001, iou
 With no checkpoint it warns and evaluates a fresh initialisation. Runs on
 the card; the config is read without PyYAML. Launched by torchrun on N
 processes, each evaluates its share of the windows on ``cuda:LOCAL_RANK``
-and the results cover all of them (evals/validator.py).
+and the results cover all of them (evals/validator.py); with
+``mesh.tensor: k`` the processes form a ``N/k x k`` mesh and each group of
+k shares its windows' forward channel-sharded.
 """
 
 from __future__ import annotations
@@ -37,10 +39,11 @@ def evaluate(cfg, weights: str | None = None, device: str | torch.device = "cuda
     """Evaluate ``weights`` (default ``<save_dir>/best.pt``) on the
     validation split that ``cfg`` names; returns the results dict. In a
     process group of more than one process the evaluation is split over a
-    data mesh; ``mesh.spatial`` and ``mesh.tensor`` raise."""
+    ``data x tensor`` mesh (``mesh.data`` x ``mesh.tensor``);
+    ``mesh.spatial`` raises."""
     refuse_unported_axes(cfg.mesh, train=False)
     detector = Detector.from_config(cfg, device=device)
-    mesh = make_mesh(cfg.mesh.data)
+    mesh = make_mesh(cfg.mesh.data, cfg.mesh.tensor)
     weights_path = Path(weights) if weights else Path(cfg.training.save_dir) / "best.pt"
     if weights_path.exists():
         # a checkpoint of this package or a flax file of the JAX package
@@ -48,7 +51,8 @@ def evaluate(cfg, weights: str | None = None, device: str | torch.device = "cuda
     else:
         params = detector.init_params(torch.Generator().manual_seed(0))
         print(f"WARNING: no checkpoint at {weights_path}; evaluating fresh init.")
-    return evaluate_model(cfg, detector, params, mesh=mesh if mesh.size > 1 else None)
+    several = mesh.size > 1 or mesh.tensor > 1
+    return evaluate_model(cfg, detector, params, mesh=mesh if several else None)
 
 
 def main(argv=None) -> dict:

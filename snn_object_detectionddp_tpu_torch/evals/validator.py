@@ -18,6 +18,11 @@ validation-index order before they reach ``DetMetrics``: the results equal
 one process's exactly (the metric's confidence sort breaks ties by order,
 so the order is kept). Rank 0 alone computes the metric and sends the
 results dict to the other ranks.
+
+With a ``data x tensor`` mesh the processes of one tensor group share
+each batch: every layer runs on their channel shards of the parameters
+(``tp_shard_params``), the full raw maps come out on each of them, and the
+data axis splits the windows as above.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from ..parallel.mesh import (
     is_main_process,
     local_batch_size,
     pad_batch_to_devices,
+    tp_shard_params,
 )
 from ..train.loop import _progress
 from ..utils.pipelining import DelayedFetch
@@ -54,12 +60,15 @@ EVAL_PRE_NMS_TOPK = 30000
 
 
 def make_predict_fn(detector, conf=EVAL_CONF, iou=EVAL_IOU, max_det=EVAL_MAX_DET,
-                    multi_label=False, pre_nms_topk=EVAL_PRE_NMS_TOPK):
+                    multi_label=False, pre_nms_topk=EVAL_PRE_NMS_TOPK, mesh=None):
     """(params, images_u8 (B, T, H, W, 3)) -> fixed-shape NMS dict of tensors
     on the detector's device, computed without a gradient. ``images_u8`` is
     a uint8 numpy array or tensor; ``params`` must already be on the
     detector's device. Under a data mesh each process predicts its own
-    batches with the whole model, so the function takes no mesh."""
+    batches with the whole model. With a ``mesh`` that has a tensor axis,
+    ``params`` are this rank's shards (``tp_shard_params(params, mesh)``),
+    the processes of a tensor group call it together on the same images
+    and each gets the whole result."""
     reg_max = detector.cfg.model.hyp.reg_max
     nc = detector.cfg.model.num_classes
 
@@ -67,7 +76,7 @@ def make_predict_fn(detector, conf=EVAL_CONF, iou=EVAL_IOU, max_det=EVAL_MAX_DET
     def predict(params, images_u8):
         images = torch.as_tensor(images_u8).to(detector.device)
         frames = preprocess_video(images, dtype=detector.dtype)
-        raw_maps, _ = detector.apply(params, frames)
+        raw_maps, _ = detector.apply(params, frames, mesh=mesh)
         boxes, scores = decode_predictions(
             raw_maps, reg_max, nc, image_hw=tuple(images.shape[2:4])
         )
@@ -97,9 +106,11 @@ def evaluate_batches(detector, params, batches: Iterable[dict], predict=None,
     ``mesh``: a data mesh; ``batches`` are then this process's share, in
     order. The records are gathered to rank 0 in rank order, rank 0
     computes the results over all processes' images, and every process
-    returns them."""
+    returns them. With a tensor axis ``params`` are this rank's shards and
+    every data rank's records are gathered within each tensor rank's data
+    group alike."""
     if predict is None:
-        predict = make_predict_fn(detector)
+        predict = make_predict_fn(detector, mesh=mesh)
     records = []  # one metric update per real sample, in batch order
 
     def accumulate(out_dev, batch):
@@ -141,15 +152,19 @@ def evaluate_model(cfg, detector, params, batch_size: int | None = None, mesh=No
     padded last-batch rows never reach the metrics, and the results dict,
     printed and returned. ``params`` must be on the detector's device.
 
-    ``mesh``: a data mesh. The global batch (``batch_size``, rounded up to
-    a multiple of the mesh) is split over the processes, each predicts its
-    contiguous share of the windows without padding, and every process
-    returns the results over all windows; rank 0 prints them."""
+    ``mesh``: a ``data x tensor`` mesh. The global batch (``batch_size``,
+    rounded up to a multiple of the data axis) is split over the data
+    axis, each tensor group predicts its contiguous share of the windows
+    without padding on its channel shards of the (whole) ``params``, and
+    every process returns the results over all windows; rank 0 prints
+    them."""
     index = DSECIndex(cfg, "train")
     _, val_idx = train_val_split(index, seed=cfg.training.seed)
     bs = batch_size or cfg.training.batch_size
     if mesh is not None:
         bs = local_batch_size(pad_batch_to_devices(bs, mesh.size), mesh.size)
+    if mesh is not None:
+        params = tp_shard_params(params, mesh)
     loader = BatchLoader(
         index, eval_shard(val_idx, mesh), batch_size=bs,
         max_boxes=cfg.model.max_boxes, shuffle=False, num_threads=cfg.training.num_workers,

@@ -21,11 +21,13 @@ Data parallelism: launched by torchrun (or with ``mesh.coordinator`` /
 ``num_processes`` / ``process_id``, as the JAX package is), every process
 runs on ``cuda:LOCAL_RANK``, feeds its own shard of the sample lists and
 ``training.batch_size / world`` samples a step, and rank 0 writes the
-checkpoints (parallel/mesh.py).
+checkpoints (parallel/mesh.py). ``mesh.fsdp: true`` also shards the
+parameters and AdamW moments over the processes; the checkpoints stay
+whole. ``mesh.tensor > 1`` serves and evaluates (eval_2, serve) and raises
+``ValueError`` in training.
 
-Not ported, each raising with the ROADMAP item that ports it: FSDP,
-spatial and tensor parallelism (``mesh.fsdp``, ``mesh.spatial``,
-``mesh.tensor``).
+Not ported, raising with the ROADMAP item that ports it: spatial
+parallelism (``mesh.spatial``).
 """
 
 from __future__ import annotations
@@ -116,6 +118,7 @@ def _train(cfg, detector) -> dict:
     fns = make_step_fns(
         detector, tx, schedule, remat=tr.remat, remat_chunk=tr.remat_chunk or None,
         grad_accum=tr.grad_accum_steps or 1, remat_policy=tr.remat_policy, mesh=mesh,
+        fsdp=cfg.mesh.fsdp,
     )
 
     def fresh_init():
@@ -126,13 +129,24 @@ def _train(cfg, detector) -> dict:
             params = load_backbone_params(cfg.model.backbone_init, params)
         return init_state(params, tx, schedule)
 
+    def place(state):
+        if any(t.is_meta for t in state["opt_state"]["mu"].values()):
+            # The checkpoint's optimizer state did not fit this optimizer: it
+            # restored the parameters only, so the moments start fresh.
+            state["opt_state"] = tx.init(state["params"])
+        # FSDP: every rank keeps its chunks of the whole state.
+        return fns.shard_state(state)
+
     state, start_epoch, best = resume_or_init(
-        cfg, init_state(meta_params, tx, schedule), init_fn=fresh_init, device=detector.device
+        cfg, init_state(meta_params, tx, schedule), init_fn=fresh_init, device=detector.device,
+        place=place,
     )
-    if any(t.is_meta for t in state["opt_state"]["mu"].values()):
-        # The checkpoint's optimizer state did not fit this optimizer: it
-        # restored the parameters only, so the moments start fresh.
-        state["opt_state"] = tx.init(state["params"])
+    if cfg.mesh.fsdp:
+        kept = sum(t.numel() * t.element_size() for part in (
+            state["params"], state["opt_state"]["mu"], state["opt_state"]["nu"])
+            for t in part.values())
+        print(f"FSDP over {mesh.size} process(es): this rank keeps {kept} bytes of parameters "
+              "and moments")
     return train_loop(state, fns, schedule, train_loader, val_loader, cfg, save_dir,
                       start_epoch=start_epoch, best_val_loss=best, detector=detector)
 

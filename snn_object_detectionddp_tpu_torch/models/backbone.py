@@ -7,6 +7,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..parallel.mesh import full_channels
 from .layers import SpikingConvBlock, SpikingDownBlock
 from .lif import LIFParams
 
@@ -75,6 +76,8 @@ class SpikingBackbone(nn.Module):
             x, new_state["stem2"] = self.stem2(x, state.get("stem2"))
         elif self.stem == "s2d":
             x, new_state["stem1"] = self.stem1(space_to_depth(x_t), state.get("stem1"))
+            # space-to-depth mixes channels: a channel shard is gathered first
+            x = full_channels(x, self.stem1.features)
             x, new_state["stem2"] = self.stem2(space_to_depth(x), state.get("stem2"))
         else:
             x, new_state["stem1"] = self.stem1(x_t, state.get("stem1"))

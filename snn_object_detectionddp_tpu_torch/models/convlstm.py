@@ -6,6 +6,12 @@ conv(x, W[:, :in]) runs once over all T steps as one (T*B) batch, and only
 the hidden half conv(h, W[:, in:]) runs per step — same parameter tensor
 and math as one concat-conv. Convs run in the compute dtype; gate math and
 the (h, c) state are fp32.
+
+Under tensor parallelism the gate conv's output channels are permuted when
+sharded (parallel/mesh.py::tp_shard_leaf), so a rank holds i, f, g and o
+of its own slice of the hidden channels: the gate math is local and ``h``
+and ``c`` stay channel-sharded; the hidden half's conv reads ``h``
+gathered whole.
 """
 
 from __future__ import annotations
@@ -38,14 +44,15 @@ class ConvLSTM2d(nn.Module):
             t[self.hidden : 2 * self.hidden] = 1.0
 
     def forward(self, x_t: torch.Tensor, state: tuple | None = None):
-        t, b, h, w, in_ch = x_t.shape
+        t, b, h, w, c = x_t.shape
+        in_ch = self.in_ch
+        hidden = self.gates_bias.shape[0] // 4  # this rank's share of the hidden channels
         if state is None:
-            zeros = torch.zeros((b, h, w, self.hidden), dtype=torch.float32,
-                                device=x_t.device)
+            zeros = torch.zeros((b, h, w, hidden), dtype=torch.float32, device=x_t.device)
             state = (zeros, zeros)
-        xb = x_t.reshape(t * b, h, w, in_ch).to(self.dtype)
+        xb = x_t.reshape(t * b, h, w, c).to(self.dtype)
         x_gates = conv2d_nhwc(xb, self.gates_kernel[:, :in_ch], name=CONV_OUT)
-        x_gates = x_gates.view(t, b, h, w, 4 * self.hidden)
+        x_gates = x_gates.view(t, b, h, w, 4 * hidden)
         k_h = self.gates_kernel[:, in_ch:]
         h_state, c_state = state
         h_seq = []

@@ -14,6 +14,7 @@ import torch
 from torch import nn
 
 from ..ops.anchors import dist2bbox, make_anchors
+from ..parallel.mesh import full_channels
 from .layers import ConvBlock, Conv1x1
 
 STRIDES = (8, 16, 32)
@@ -21,7 +22,8 @@ STRIDES = (8, 16, 32)
 
 class DetectHead(nn.Module):
     """List of 3 maps (B, H/s, W/s, C_s) -> list of 3 raw maps
-    (B, H/s, W/s, 4*reg_max + nc) in fp32, box logits first."""
+    (B, H/s, W/s, 4*reg_max + nc) in fp32, box logits first. Under tensor
+    parallelism the box and class outputs are gathered whole."""
 
     def __init__(self, num_classes: int, feat_channels: tuple[int, int, int],
                  reg_max: int = 16, dtype: torch.dtype = torch.bfloat16):
@@ -44,9 +46,9 @@ class DetectHead(nn.Module):
         outs = []
         for i, x in enumerate(feats):
             box = getattr(self, f"box{i}_conv2")(getattr(self, f"box{i}_conv1")(x))
-            box = getattr(self, f"box{i}_out")(box)
+            box = full_channels(getattr(self, f"box{i}_out")(box), 4 * self.reg_max)
             cls = getattr(self, f"cls{i}_conv2")(getattr(self, f"cls{i}_conv1")(x))
-            cls = getattr(self, f"cls{i}_out")(cls)
+            cls = full_channels(getattr(self, f"cls{i}_out")(cls), self.num_classes)
             outs.append(torch.cat([box, cls], -1).float())
         return outs
 

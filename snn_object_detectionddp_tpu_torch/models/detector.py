@@ -10,6 +10,12 @@ is the T=1 case carrying ``state``. ``params`` is a flat dict of tensors
 (``init_params``, or ``convert.params_from_jax`` for a JAX checkpoint); the
 module itself is a parameter-free skeleton on the ``meta`` device, run with
 ``torch.func.functional_call``.
+
+Tensor-parallel inference: ``detector.apply(shards, frames_t, state,
+mesh=mesh)`` with ``shards = tp_shard_params(params, mesh)``
+(parallel/mesh.py) runs every layer on this rank's channel shards and
+returns the full raw maps; the recurrent state it returns stays
+channel-sharded, and :meth:`Detector.gather_state` makes it whole.
 """
 
 from __future__ import annotations
@@ -21,6 +27,7 @@ import torch
 from torch import nn
 
 from ..config import Config
+from ..parallel.mesh import full_channels, tensor_parallel
 from .backbone import SpikingBackbone, preset_channels
 from .detect import DetectHead, decode_predictions
 from .lif import LIFParams
@@ -162,9 +169,31 @@ class Detector:
 
     @torch.no_grad()
     def apply(self, params: dict, frames_t: torch.Tensor, state: dict | None = None,
-              all_steps: bool = False):
-        """Gradient-free forward (serving, evaluation)."""
-        return self.apply_train(params, frames_t, state, all_steps=all_steps)
+              all_steps: bool = False, mesh=None):
+        """Gradient-free forward (serving, evaluation). With a ``mesh``
+        that has a tensor axis, ``params`` are this rank's shards
+        (``tp_shard_params``) and every rank of the tensor group must call
+        this together."""
+        with tensor_parallel(mesh):
+            return self.apply_train(params, frames_t, state, all_steps=all_steps)
+
+    @torch.no_grad()
+    def gather_state(self, state: dict, mesh=None) -> dict:
+        """The recurrent state of a tensor-parallel forward made whole:
+        each leaf's channel shards gathered over the tensor group (a leaf
+        that is already whole is kept). Every rank of the group must call
+        this together."""
+
+        def walk(node, mod):
+            if isinstance(node, dict):
+                return {k: walk(v, getattr(mod, k)) for k, v in node.items()}
+            width = getattr(mod, "features", None) or mod.hidden
+            if isinstance(node, (tuple, list)):
+                return type(node)(full_channels(x, width) for x in node)
+            return full_channels(node, width)
+
+        with tensor_parallel(mesh):
+            return walk(state, self.module)
 
     def apply_train(self, params: dict, frames_t: torch.Tensor, state: dict | None = None,
                     all_steps: bool = False, state_only: bool = False):

@@ -20,6 +20,15 @@ Parity with the JAX (flax) package, which these modules are held against:
 Modules are built on the ``meta`` device; parameters live in a plain
 dict (see models/detector.py) and each module fills its own with
 ``init_param`` following the flax initializers.
+
+Tensor parallelism (inference only, parallel/mesh.py): under
+``tensor_parallel(mesh)`` the parameters are the rank's output-channel
+shards, so every activation holds 1/k of its channels. A conv whose input
+holds a shard all-gathers it in global channel order first
+(:func:`conv2d_nhwc`; a concat gathers each part); GroupNorm keeps the
+global group count, local when the rank holds whole groups and with its
+per-channel sums gathered otherwise; everything per channel (the LIF, the
+affine, SiLU, the bias, the skip resize) runs on the shard.
 """
 
 from __future__ import annotations
@@ -31,6 +40,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel.mesh import all_gather_channels, current_tensor_group, full_channels
 from .lif import LIFParams, run_affine_lif_tb
 
 GN_EPS = 1e-6
@@ -93,7 +103,10 @@ def conv2d_nhwc(
     an fp32 consumer. Each product of two bf16 values is exact in fp32 (and
     in TF32), so only the summation order differs from a bf16 conv that
     accumulates in fp32. ``name`` marks the convolution for
-    :func:`conv_name` while it is dispatched."""
+    :func:`conv_name` while it is dispatched. An input holding a channel
+    shard under tensor parallelism is gathered first
+    (parallel/mesh.py::full_channels)."""
+    x = full_channels(x, weight.shape[1])
     kh, kw = weight.shape[-2:]
     ph, pw = same_pads(x.shape[1], kh, stride), same_pads(x.shape[2], kw, stride)
     if ph[0] == ph[1] and pw[0] == pw[1]:
@@ -112,15 +125,57 @@ def conv2d_nhwc(
     return y.permute(0, 2, 3, 1).contiguous()
 
 
+def shard_groups(features: int, channels: int) -> int | None:
+    """The GroupNorm groups of a ``features``-wide layer that a tensor of
+    ``channels`` of its channels holds whole: ``_num_groups(features)``
+    for the full width, its 1/k share on a shard of k whole groups, None
+    when a group straddles the shards (the statistics then need the other
+    ranks' sums)."""
+    groups = _num_groups(features)
+    k = features // channels
+    return groups // k if groups % k == 0 else None
+
+
+def gathered_group_moments(s1: torch.Tensor, s2: torch.Tensor, features: int,
+                           count: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-channel (mean, mean of squares) of the groups a channel shard's
+    channels belong to, when groups straddle the shards: the shard's
+    per-channel sums ``s1`` / ``s2`` (N, c) are all-gathered over the tensor
+    group, folded into the global groups of ``count`` elements each and
+    read back at this rank's channels."""
+    tg = current_tensor_group()
+    sums = all_gather_channels(torch.stack([s1, s2]), tg)  # (2, N, features)
+    groups = _num_groups(features)
+    g = sums.view(2, s1.shape[0], groups, features // groups).sum(3) / count
+    per_channel = g.repeat_interleave(features // groups, 2)
+    c = s1.shape[1]
+    mine = per_channel[..., tg.rank * c : (tg.rank + 1) * c]
+    return mine[0], mine[1]
+
+
 def group_norm_nhwc(
     x: torch.Tensor, groups: int, scale: torch.Tensor, bias: torch.Tensor,
-    stats: torch.Tensor,
+    stats: torch.Tensor, features: int | None = None,
 ) -> torch.Tensor:
     """flax ``nn.GroupNorm`` (eps 1e-6, one-pass variance) in fp32 on a
     (B, H, W, C) tensor. The group mean and variance come from ``stats``,
     a tensor of x's shape (``x`` itself, or its rounding to the compute
-    dtype)."""
+    dtype). Under tensor parallelism ``x`` may be a channel shard of a
+    ``features``-wide layer of ``groups`` groups (:func:`shard_groups`)."""
     n, h, w, c = x.shape
+    features = features or c
+    if c != features:
+        local = shard_groups(features, c)
+        if local is None:
+            sf = stats.float()
+            cg = features // groups
+            mean_c, mean2_c = gathered_group_moments(
+                sf.sum((1, 2)), sf.square().sum((1, 2)), features, h * w * cg)
+            var = (mean2_c - mean_c.square()).clamp(min=0.0)
+            mul = torch.rsqrt(var + GN_EPS) * scale
+            y = (x.float() - mean_c[:, None, None]) * mul[:, None, None] + bias
+            return y
+        groups = local
     xg = x.float().reshape(n, h * w, groups, c // groups)
     sg = stats.float().reshape(n, h * w, groups, c // groups)
     mean = sg.mean((1, 3), keepdim=True)
@@ -174,20 +229,26 @@ class SpikingConvBlock(nn.Module):
         # stage its bf16 rounding (the jitted JAX block's optimized HLO)
         xf = conv2d_nhwc(x, self.weight, self.stride, f32_result=True, name=CONV_OUT)
         x = xf.to(self.dtype)
-        c = self.features
-        groups = _num_groups(c)
-        cg = c // groups
-        # Reduce over (H, W) first, then fold channels into groups on the
-        # tiny (T*B, C) sums — same op order as the JAX block.
-        s1 = xf.sum((1, 2)).view(t * b, groups, cg).sum(2)
-        s2 = xf.square().sum((1, 2)).view(t * b, groups, cg).sum(2)
+        c = xf.shape[-1]  # the layer's width, or 1/k of it under tensor parallelism
+        groups = shard_groups(self.features, c)
+        cg = self.features // _num_groups(self.features)
         n = x.shape[1] * x.shape[2] * cg
-        mean = s1 / n
-        mean2 = s2 / n
-        var = (mean2 - mean.square()).clamp(min=0.0)
-        rstd = torch.rsqrt(var + GN_EPS)
-        mean_c = mean.repeat_interleave(cg, 1).view(t, b, c)
-        rstd_c = rstd.repeat_interleave(cg, 1).view(t, b, c)
+        if groups is None:  # groups straddle the tensor-parallel shards
+            mean_c, mean2_c = gathered_group_moments(
+                xf.sum((1, 2)), xf.square().sum((1, 2)), self.features, n)
+            var = (mean2_c - mean_c.square()).clamp(min=0.0)
+            mean_c, rstd_c = mean_c.view(t, b, c), torch.rsqrt(var + GN_EPS).view(t, b, c)
+        else:
+            # Reduce over (H, W) first, then fold channels into groups on
+            # the tiny (T*B, C) sums — same op order as the JAX block.
+            s1 = xf.sum((1, 2)).view(t * b, groups, cg).sum(2)
+            s2 = xf.square().sum((1, 2)).view(t * b, groups, cg).sum(2)
+            mean = s1 / n
+            mean2 = s2 / n
+            var = (mean2 - mean.square()).clamp(min=0.0)
+            rstd = torch.rsqrt(var + GN_EPS)
+            mean_c = mean.repeat_interleave(cg, 1).view(t, b, c)
+            rstd_c = rstd.repeat_interleave(cg, 1).view(t, b, c)
         a = rstd_c * self.gn_scale
         bias = self.gn_bias - mean_c * rstd_c * self.gn_scale
         out = run_affine_lif_tb(x, a, bias, self.lif, v0, with_readouts)
@@ -231,7 +292,7 @@ class ConvBlock(nn.Module):
         y = conv2d_nhwc(x.to(self.dtype), self.weight, self.stride, f32_result=True,
                         name=CONV_OUT)
         x = group_norm_nhwc(y, _num_groups(self.features), self.gn_scale, self.gn_bias,
-                            stats=y.to(self.dtype))
+                            stats=y.to(self.dtype), features=self.features)
         return F.silu(x).to(self.dtype)
 
 
@@ -267,6 +328,7 @@ class UpBlock(nn.Module):
         super().__init__()
         self.dtype = dtype
         up_ch = in_ch // 2
+        self.skip_ch, self.up_ch = skip_ch, up_ch
         # (in, out, kh, kw), spatially flipped relative to flax's HWIO kernel.
         self.up_weight = nn.Parameter(torch.empty(in_ch, up_ch, 2, 2))
         self.up_bias = nn.Parameter(torch.empty(up_ch))
@@ -281,6 +343,7 @@ class UpBlock(nn.Module):
             t.zero_()
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        x = full_channels(x, self.up_weight.shape[0])
         up = F.conv_transpose2d(
             x.to(self.dtype).permute(0, 3, 1, 2),
             self.up_weight.to(dtype=self.dtype, memory_format=torch.channels_last),
@@ -292,5 +355,7 @@ class UpBlock(nn.Module):
                 skip.permute(0, 3, 1, 2), size=tuple(up.shape[1:3]),
                 mode="bilinear", align_corners=False,
             ).permute(0, 2, 3, 1)
-        x = torch.cat([skip.to(self.dtype), up], -1)
+        # the skip resize is per channel, so it ran on the shard
+        x = torch.cat([full_channels(skip.to(self.dtype), self.skip_ch),
+                       full_channels(up, self.up_ch)], -1)
         return self.conv2(self.conv1(x))

@@ -14,12 +14,20 @@ bf16 ``torch.matmul`` would round its output to bf16, so
 bf16 x bf16 products summed in fp32, on the CPU and on the card alike
 (the card's fp32 matmul runs in full fp32 unless the caller turns TF32
 on). State, gate math and the carry stay fp32.
+
+Under tensor parallelism the gate columns of ``w_ih``, ``w_hh`` and the
+bias are permuted when sharded (parallel/mesh.py::tp_shard_leaf), so a
+rank computes i, f, g and o of its own slice of the hidden units; the
+input tokens and each new ``h`` are gathered whole for the next product,
+and the carry stays sharded.
 """
 
 from __future__ import annotations
 
 import torch
 from torch import nn
+
+from ..parallel.mesh import full_channels
 
 
 def _dot_f32(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -53,14 +61,20 @@ class TokenLSTM(nn.Module):
             t[self.hidden : 2 * self.hidden] = 1.0
 
     def forward(self, x_t: torch.Tensor, state: tuple | None = None):
+        try:
+            x_t = full_channels(x_t, self.hidden)  # a channel shard is gathered whole
+        except ValueError:
+            raise ValueError(
+                f"TokenLSTM expects input dim {self.hidden}, got {x_t.shape[-1]}") from None
         t, b, h, w, c = x_t.shape
-        if c != self.hidden:
-            raise ValueError(f"TokenLSTM expects input dim {self.hidden}, got {c}")
+        units = self.l0_bias.shape[0] // 4  # this rank's share of the hidden units
         if state is None:
-            zeros = torch.zeros((self.num_layers, b, self.hidden), dtype=torch.float32,
+            zeros = torch.zeros((self.num_layers, b, units), dtype=torch.float32,
                                 device=x_t.device)
             state = (zeros, zeros)
         h_all, c_all = list(state[0].unbind(0)), list(state[1].unbind(0))
+        # each layer's h, whole: the next token's recurrent product reads it
+        h_full = [full_channels(x, self.hidden) for x in h_all]
         w_ih = [getattr(self, f"l{n}_w_ih").to(self.dtype).float() for n in range(self.num_layers)]
         w_hh = [getattr(self, f"l{n}_w_hh").to(self.dtype).float() for n in range(self.num_layers)]
         bias = [getattr(self, f"l{n}_bias") for n in range(self.num_layers)]
@@ -78,12 +92,13 @@ class TokenLSTM(nn.Module):
                     x_gates = (x_gates0[frame, :, tok] if layer == 0
                                else torch.matmul(inp.to(self.dtype).float(), w_ih[layer]))
                     gates = (x_gates
-                             + torch.matmul(h_all[layer].to(self.dtype).float(), w_hh[layer])
+                             + torch.matmul(h_full[layer].to(self.dtype).float(), w_hh[layer])
                              + bias[layer])
                     i, f, g, o = gates.chunk(4, -1)
                     c_all[layer] = torch.sigmoid(f) * c_all[layer] + torch.sigmoid(i) * torch.tanh(g)
                     h_all[layer] = torch.sigmoid(o) * torch.tanh(c_all[layer])
-                    inp = h_all[layer]
-                outs.append(inp)
-            frames.append(torch.stack(outs, 1).reshape(b, h, w, self.hidden))
+                    h_full[layer] = full_channels(h_all[layer], self.hidden)
+                    inp = h_full[layer]
+                outs.append(h_all[layer])
+            frames.append(torch.stack(outs, 1).reshape(b, h, w, units))
         return torch.stack(frames).to(self.dtype), (torch.stack(h_all), torch.stack(c_all))

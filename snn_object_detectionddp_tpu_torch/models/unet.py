@@ -17,6 +17,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ..parallel.mesh import full_channels
 from .convlstm import ConvLSTM2d
 from .layers import ConvBlock, Conv1x1, SpikingConvBlock, SpikingDownBlock, UpBlock, membrane_readout
 from .lif import LIFParams
@@ -36,6 +37,7 @@ class TemporalUNet(nn.Module):
         self.lif, self.bottleneck_kind, self.dtype = lif, bottleneck, dtype
         ch_p3, ch_p4, ch_p5 = feat_channels
         c1, c2, c3, c4 = base, base * 2, base * 4, base * 8
+        self.widths = {"p4": ch_p4, "p5": ch_p5, "d1": c2, "d2": c3}
         self.enc1 = SpikingConvBlock(ch_p3, c1, lif, dtype=dtype)
         self.down1 = SpikingDownBlock(c1, c2, lif, dtype=dtype)
         self.enc2 = SpikingConvBlock(c2 + ch_p4, c2, lif, dtype=dtype)
@@ -69,11 +71,11 @@ class TemporalUNet(nn.Module):
         x1, new_state["enc1"], *r1 = self.enc1(p3, state.get("enc1"), with_readouts=all_steps)
         d1, new_state["down1"] = self.down1(x1, state.get("down1"))
         x2, new_state["enc2"], *r2 = self.enc2(
-            torch.cat([d1, p4], -1), state.get("enc2"), with_readouts=all_steps
+            self._concat(d1, "d1", p4, "p4"), state.get("enc2"), with_readouts=all_steps
         )
         d2, new_state["down2"] = self.down2(x2, state.get("down2"))
         x3, new_state["enc3"], *r3 = self.enc3(
-            torch.cat([d2, p5], -1), state.get("enc3"), with_readouts=all_steps
+            self._concat(d2, "d2", p5, "p5"), state.get("enc3"), with_readouts=all_steps
         )
         d3, new_state["down3"] = self.down3(x3, state.get("down3"))
 
@@ -106,6 +108,12 @@ class TemporalUNet(nn.Module):
         u2 = self.up2(u1, skip2)
         u3 = self.up3(u2, skip1)
         return (self.out_p3(u3), self.out_p4(u2), self.out_p5(u1)), new_state
+
+    def _concat(self, a, a_name: str, b, b_name: str) -> torch.Tensor:
+        """[a, b] on the channel axis, each gathered whole first under
+        tensor parallelism (global channel order)."""
+        return torch.cat([full_channels(a, self.widths[a_name]),
+                          full_channels(b, self.widths[b_name])], -1)
 
     def _readout(self, spikes_t: torch.Tensor, v_final: torch.Tensor) -> torch.Tensor:
         return membrane_readout(spikes_t.float(), v_final, self.lif).to(self.dtype)

@@ -21,13 +21,34 @@ environment (``RANK`` / ``WORLD_SIZE`` / ``LOCAL_RANK`` / ``MASTER_ADDR`` /
 ``MASTER_PORT``). NCCL on the card, gloo on the CPU. A failed rendezvous
 raises: nothing falls back to another backend or device.
 
-FSDP, spatial and tensor parallelism (the JAX package's parts (c)-(e)) are
-not ported; the entry points raise on them.
+Part (c), FSDP (``mesh.fsdp``): every leaf of the parameters and of the
+AdamW moments is flattened, padded with zeros to a multiple of the data
+axis size W, and rank r keeps chunk r (:class:`ShardLayout`,
+:func:`shard_state`). A train step gathers the full parameters once
+(:func:`gather_params`, one all-gather), runs forward and backward on its
+local batch, and reduce-scatters the summed gradients
+(:func:`reduce_scatter_grads`) so that the optimizer updates only the
+local chunks. The JAX package shards each leaf on its largest divisible
+dimension instead; the arithmetic is the same.
+
+Part (e), tensor parallelism (``mesh.tensor``, inference only): a 2-D
+``data x tensor`` mesh (:func:`make_mesh`), ranks laid out ``rank = d *
+tensor + t`` so that a tensor group is consecutive processes. Every
+parameter shards its output-channel axis over the tensor group where the
+group size k divides it (:func:`tp_shard_params`), activations are
+channel-sharded, and a conv all-gathers its input's shards in global
+channel order (:func:`all_gather_channels`, entered through
+:func:`tensor_parallel`).
+
+Spatial parallelism (part (d)) is not ported; the entry points raise on it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
+import re
+import threading
 from dataclasses import dataclass
 from datetime import timedelta
 
@@ -137,51 +158,74 @@ def _group_device() -> torch.device:
 
 
 def refuse_unported_axes(mesh_cfg, train: bool) -> None:
-    """Raise on the mesh axes the port does not run: FSDP (an axis of the
-    train state, so checked when ``train``), spatial and tensor
-    parallelism. Every entry point calls this first."""
-    if train and mesh_cfg.fsdp:
-        raise NotImplementedError(
-            "mesh.fsdp (sharded train state) is not ported: ROADMAP §1 item 3 (c), FSDP")
+    """Raise on the mesh axes the port does not run: spatial parallelism
+    (``NotImplementedError``), and a tensor axis in training
+    (``ValueError``: tensor parallelism is inference-only by design, as in
+    the JAX package). Every entry point calls this first."""
     if mesh_cfg.spatial > 1:
         raise NotImplementedError(
             "mesh.spatial > 1 (image height split over devices) is not ported: "
             "ROADMAP §1 item 3 (d), spatial parallelism")
-    if mesh_cfg.tensor > 1:
-        raise NotImplementedError(
-            "mesh.tensor > 1 (channel-sharded inference) is not ported: "
-            "ROADMAP §1 item 3 (e), tensor parallelism")
+    if train and mesh_cfg.tensor > 1:
+        raise ValueError(
+            "mesh.tensor > 1 is inference-only (eval/serving latency); "
+            "training supports data and fsdp parallelism")
 
 
 @dataclass(frozen=True)
 class DataMesh:
-    """A 1-D data mesh: ``size`` processes (the data axis size: the global
-    batch tiles over it), this one's ``rank`` and the process ``group``
-    (None for a single process without a group, where every collective is
-    the identity). Collectives run on the device of the tensors given to
-    them."""
+    """A ``data x tensor`` process mesh. ``size``, ``rank`` and ``group``
+    are the data axis (the global batch tiles over it; ``group`` is None
+    for a single process without a group, where every collective is the
+    identity); ``tensor``, ``tensor_rank`` and ``tensor_group`` the tensor
+    axis (``tensor_group`` None when ``tensor`` is 1). Collectives run on
+    the device of the tensors given to them."""
 
     size: int
     rank: int
     group: object | None
+    tensor: int = 1
+    tensor_rank: int = 0
+    tensor_group: object | None = None
 
 
-def make_mesh(data: int = -1) -> DataMesh:
-    """The data mesh over the whole process group. ``data=-1`` (or 0) takes
-    every process; any other value must equal the world size: a mesh over
-    part of the processes would leave the others idle, and a ``data``
-    larger than the world raises, as the JAX ``make_mesh`` does."""
+def make_mesh(data: int = -1, tensor: int = 1) -> DataMesh:
+    """The ``data x tensor`` mesh over the whole process group, ranks laid
+    out ``rank = d * tensor + t``. ``data=-1`` (or 0) takes every process
+    the tensor axis leaves; any other value must make ``data * tensor`` the
+    world size: a mesh over part of the processes would leave the others
+    idle, and a mesh larger than the world raises, as the JAX
+    ``make_mesh`` does. Every process must call this with the same
+    arguments (each axis group is made by every rank)."""
     n, rank = _world()
-    data = int(data)
+    data, tensor = int(data), int(tensor)
+    if tensor < 1 or n % tensor:
+        raise ValueError(f"mesh.tensor={tensor} must divide the world size of {n} process(es)")
     if data in (-1, 0):
-        data = n
-    if data > n:
-        raise ValueError(f"mesh.data={data} exceeds the world size of {n} process(es): launch "
-                         f"{data} processes (torchrun --nproc_per_node {data}) or set mesh.data: -1")
-    if data != n:
-        raise ValueError(f"mesh.data={data} must equal the world size ({n}) or be -1: the data "
-                         "mesh spans the whole process group")
-    return DataMesh(size=n, rank=rank, group=dist.group.WORLD if dist.is_initialized() else None)
+        data = n // tensor
+    if data * tensor > n:
+        raise ValueError(f"mesh.data={data} x mesh.tensor={tensor} exceeds the world size of {n} "
+                         f"process(es): launch {data * tensor} processes (torchrun "
+                         f"--nproc_per_node {data * tensor}) or set mesh.data: -1")
+    if data * tensor != n:
+        raise ValueError(f"mesh.data={data} x mesh.tensor={tensor} must equal the world size "
+                         f"({n}): the mesh spans the whole process group")
+    if not dist.is_initialized():
+        return DataMesh(size=1, rank=0, group=None)
+    if tensor == 1:
+        return DataMesh(size=n, rank=rank, group=dist.group.WORLD)
+    d, t = divmod(rank, tensor)
+    data_group = tensor_group = None
+    for j in range(tensor):  # every rank makes every group, in one order
+        g = dist.new_group([i * tensor + j for i in range(data)])
+        if j == t:
+            data_group = g
+    for i in range(data):
+        g = dist.new_group([i * tensor + j for j in range(tensor)])
+        if i == d:
+            tensor_group = g
+    return DataMesh(size=data, rank=d, group=data_group, tensor=tensor, tensor_rank=t,
+                    tensor_group=tensor_group)
 
 
 def local_batch_size(global_batch_size: int, num_processes: int | None = None) -> int:
@@ -234,6 +278,10 @@ def eval_shard(indices: list[int], mesh: DataMesh | None) -> list[int]:
 def _collective(mesh: DataMesh | None) -> bool:
     return mesh is not None and mesh.group is not None
 
+
+# The collectives on flat buffers (named ``*_single`` from torch 2.13 on).
+_all_gather_flat = getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor
+_reduce_scatter_flat = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
 
 # Each gradient's segment of the flat buffer starts at a multiple of this
 # many elements (128 bytes of fp32), and its view keeps the gradient's own
@@ -289,14 +337,292 @@ def gather_to_main(items: list, mesh: DataMesh | None) -> list | None:
     if not _collective(mesh):
         return list(items)
     parts: list | None = [None] * mesh.size if mesh.rank == 0 else None
-    dist.gather_object(list(items), parts, dst=0, group=mesh.group)
+    dist.gather_object(list(items), parts, dst=dist.get_global_rank(mesh.group, 0),
+                       group=mesh.group)
     return None if parts is None else [x for part in parts for x in part]
 
 
 def broadcast_from_main(obj, mesh: DataMesh | None):
-    """Rank 0's ``obj`` on every rank (``broadcast_object_list``)."""
+    """Data rank 0's ``obj`` on every rank of the data axis
+    (``broadcast_object_list``)."""
     if not _collective(mesh):
         return obj
+    return broadcast_object(obj, mesh.group)
+
+
+def broadcast_object(obj, group):
+    """The ``obj`` of ``group``'s first rank on every rank of ``group``."""
     box = [obj]
-    dist.broadcast_object_list(box, src=0, group=mesh.group)
+    dist.broadcast_object_list(box, src=dist.get_global_rank(group, 0), group=group)
     return box[0]
+
+
+# ---------------------------------------------------------------------------
+# (c) FSDP: sharded parameters and AdamW moments over the data axis
+# ---------------------------------------------------------------------------
+
+
+def _aligned(n: int) -> int:
+    return -(-n // SEGMENT_ALIGN) * SEGMENT_ALIGN
+
+
+@dataclass(frozen=True)
+class ShardLayout:
+    """Where each leaf's chunks live. Leaf ``names[i]`` of shape
+    ``shapes[i]`` is flattened in row-major order and padded with zeros to
+    ``world * chunks[i]`` elements; rank r keeps elements ``[r * c, (r + 1)
+    * c)``. A rank's chunks sit in one local buffer of ``local_numel``
+    elements, chunk i at ``offsets[i]`` (a multiple of ``SEGMENT_ALIGN``);
+    the buffer of a collective is the ``world`` local buffers rank after
+    rank."""
+
+    names: tuple
+    shapes: tuple
+    chunks: tuple
+    offsets: tuple
+    local_numel: int
+    world: int
+
+    def numel(self, i: int) -> int:
+        n = 1
+        for d in self.shapes[i]:
+            n *= d
+        return n
+
+    def local_views(self, buf: torch.Tensor) -> dict:
+        """``{name: chunk}`` views of a local buffer."""
+        return {k: buf[o : o + c] for k, o, c in zip(self.names, self.offsets, self.chunks)}
+
+
+def shard_layout(shapes: dict, world: int) -> ShardLayout:
+    """The layout of ``{name: shape}`` (tensors or shapes) over ``world``
+    ranks."""
+    names = tuple(shapes)
+    shp = tuple(tuple(getattr(v, "shape", v)) for v in shapes.values())
+    chunks, offsets, off = [], [], 0
+    for s in shp:
+        n = 1
+        for d in s:
+            n *= d
+        c = -(-n // world)
+        chunks.append(c)
+        offsets.append(off)
+        off += _aligned(c)
+    return ShardLayout(names, shp, tuple(chunks), tuple(offsets), off, world)
+
+
+def shard_tree(full: dict, layout: ShardLayout, rank: int) -> dict:
+    """This rank's chunks of a full ``{name: tensor}`` tree, as views of
+    one fresh local buffer on the tensors' device (pads zero)."""
+    dev = full[layout.names[0]].device
+    buf = torch.zeros(layout.local_numel, dtype=torch.float32, device=dev)
+    out = layout.local_views(buf)
+    with torch.no_grad():
+        for i, k in enumerate(layout.names):
+            flat = full[k].detach().reshape(-1)
+            c = layout.chunks[i]
+            part = flat[rank * c : (rank + 1) * c]
+            out[k][: part.numel()].copy_(part)
+    return out
+
+
+def shard_state(state: dict, layout: ShardLayout, rank: int) -> dict:
+    """A full train state with its parameters and AdamW moments replaced
+    by this rank's chunks (the JAX package's ``place_state``): every rank
+    holds the same full state (a seeded init or the same checkpoint file)
+    and keeps 1/W of it."""
+    opt = state["opt_state"]
+    return {**state, "params": shard_tree(state["params"], layout, rank),
+            "opt_state": {**opt, "mu": shard_tree(opt["mu"], layout, rank),
+                          "nu": shard_tree(opt["nu"], layout, rank)}}
+
+
+def _global_buffer(layout: ShardLayout, like: torch.Tensor, zero: bool) -> torch.Tensor:
+    make = torch.zeros if zero else torch.empty
+    return make(layout.world * layout.local_numel, dtype=torch.float32, device=like.device)
+
+
+@torch.no_grad()
+def gather_params(chunks: dict, layout: ShardLayout, mesh: DataMesh | None) -> dict:
+    """Full ``{name: tensor}`` leaves (the parameters, or a moment) from
+    every rank's chunks: the local chunks are copied into one local buffer,
+    one all-gather over the data axis fills the rank-major buffer, and each
+    leaf is copied out of it. Every rank of the data axis must call this
+    together."""
+    first = chunks[layout.names[0]]
+    local = torch.empty(layout.local_numel, dtype=torch.float32, device=first.device)
+    views = layout.local_views(local)
+    torch._foreach_copy_([views[k] for k in layout.names], [chunks[k] for k in layout.names])
+    if _collective(mesh):
+        whole = _global_buffer(layout, first, zero=False)
+        _all_gather_flat(whole, local, group=mesh.group)
+    else:
+        whole = local
+    rows = whole.view(layout.world, layout.local_numel)
+    out = {}
+    for i, k in enumerate(layout.names):
+        o, c, n = layout.offsets[i], layout.chunks[i], layout.numel(i)
+        out[k] = rows[:, o : o + c].reshape(-1)[:n].view(layout.shapes[i])
+    return out
+
+
+def gather_state(state: dict, layout: ShardLayout, mesh: DataMesh | None) -> dict:
+    """A sharded train state made whole on every rank (the JAX package's
+    ``make_state_gatherer``): what checkpoints, validation and the
+    spike-rate pass read. Every rank must call this together."""
+    opt = state["opt_state"]
+    return {**state, "params": gather_params(state["params"], layout, mesh),
+            "opt_state": {**opt, "mu": gather_params(opt["mu"], layout, mesh),
+                          "nu": gather_params(opt["nu"], layout, mesh)}}
+
+
+@torch.no_grad()
+def reduce_scatter_grads(grads: dict, layout: ShardLayout, mesh: DataMesh | None) -> dict:
+    """Sum the full fp32 ``{name: gradient}`` over the data axis and keep
+    this rank's chunk of each: every gradient is written, zero-padded, into
+    its rows of one rank-major buffer and one SUM reduce-scatter leaves the
+    local buffer; returns ``{name: chunk}`` views of it."""
+    first = grads[layout.names[0]]
+    whole = _global_buffer(layout, first, zero=True)
+    rows = whole.view(layout.world, layout.local_numel)
+    for i, k in enumerate(layout.names):
+        o, c, n = layout.offsets[i], layout.chunks[i], layout.numel(i)
+        flat = grads[k].reshape(-1)
+        full_rows, rest = divmod(n, c)
+        if full_rows:
+            rows[:full_rows, o : o + c].copy_(flat[: full_rows * c].view(full_rows, c))
+        if rest:
+            rows[full_rows, o : o + rest].copy_(flat[full_rows * c :])
+    if _collective(mesh):
+        local = torch.empty(layout.local_numel, dtype=torch.float32, device=first.device)
+        _reduce_scatter_flat(local, whole, op=dist.ReduceOp.SUM, group=mesh.group)
+    else:
+        local = whole
+    return layout.local_views(local)
+
+
+def sharded_norm(chunks, mesh: DataMesh | None) -> torch.Tensor:
+    """The global L2 norm of tensors whose chunks the ranks hold: each
+    rank's per-chunk norms are all-gathered over the data axis and the norm
+    of all of them is taken. Over one rank it is ``global_norm`` of the
+    chunks, summed in the same order."""
+    chunks = list(chunks)
+    norms = torch.stack(torch._foreach_norm(chunks))
+    if _collective(mesh):
+        every = torch.empty(mesh.size * norms.numel(), dtype=norms.dtype, device=norms.device)
+        _all_gather_flat(every, norms, group=mesh.group)
+        norms = every
+    return torch.linalg.vector_norm(norms)
+
+
+# ---------------------------------------------------------------------------
+# (e) Tensor parallelism: channel-sharded inference over the tensor axis
+# ---------------------------------------------------------------------------
+
+# Gate-stacked leaves ([i | f | g | o] along the sharded axis): the
+# ConvLSTM's gate conv and the token LSTM's products. Their shard holds
+# i, f, g and o of one slice of the hidden channels.
+_CONVLSTM_GATES = re.compile(r"(^|\.)gates_(kernel|bias)$")
+_TOKEN_LSTM_GATES = re.compile(r"(^|\.)l\d+_(w_ih|w_hh|bias)$")
+
+
+def tp_spec(name: str, shape, k: int) -> tuple[int, bool] | None:
+    """How a parameter leaf shards over a tensor group of ``k`` (the JAX
+    package's ``tp_spec`` in the port's layouts): ``(axis, gated)`` where
+    ``axis`` is its output-channel axis and ``gated`` says it stacks the
+    four LSTM gates along it, or None to replicate. The axis is dim 0 of
+    an OIHW conv weight, of biases and of GroupNorm affines, dim 1 of the
+    ``(in, out, 2, 2)`` ConvTranspose weight and the trailing ``4*hidden``
+    of the token LSTM's ``w_ih`` / ``w_hh``. A leaf shards when ``k``
+    divides that axis (for a gated leaf: each gate's width)."""
+    shape = tuple(shape)
+    if k <= 1 or not shape:
+        return None
+    gated = bool(_CONVLSTM_GATES.search(name) or _TOKEN_LSTM_GATES.search(name))
+    if name.endswith("up_weight"):
+        axis = 1
+    elif _TOKEN_LSTM_GATES.search(name):
+        axis = len(shape) - 1
+    else:
+        axis = 0
+    width = shape[axis] // 4 if gated else shape[axis]
+    if (gated and shape[axis] % 4) or width % k:
+        return None
+    return axis, gated
+
+
+def tp_shard_leaf(name: str, leaf: torch.Tensor, k: int, t: int) -> torch.Tensor:
+    """Rank ``t``'s shard of one leaf (:func:`tp_spec`), contiguous; the
+    leaf itself when it replicates."""
+    spec = tp_spec(name, leaf.shape, k)
+    if spec is None:
+        return leaf
+    axis, gated = spec
+    if gated:
+        gates = leaf.chunk(4, axis)
+        w = gates[0].shape[axis] // k
+        return torch.cat([g.narrow(axis, t * w, w) for g in gates], axis).contiguous()
+    w = leaf.shape[axis] // k
+    return leaf.narrow(axis, t * w, w).contiguous()
+
+
+def tp_shard_params(params: dict, mesh: DataMesh) -> dict:
+    """This rank's channel shards of full parameters over the mesh's
+    tensor axis (:func:`tp_spec`); the dict itself without one."""
+    if mesh is None or mesh.tensor == 1:
+        return params
+    return {k: tp_shard_leaf(k, v, mesh.tensor, mesh.tensor_rank) for k, v in params.items()}
+
+
+@dataclass(frozen=True)
+class _TensorGroup:
+    size: int
+    rank: int
+    group: object
+
+
+_tp = threading.local()
+
+
+def current_tensor_group() -> _TensorGroup | None:
+    """The tensor group this thread's forward shards channels over, None
+    outside :func:`tensor_parallel`."""
+    return getattr(_tp, "group", None)
+
+
+@contextlib.contextmanager
+def tensor_parallel(mesh: DataMesh | None):
+    """Run the model's layers channel-sharded over ``mesh``'s tensor axis
+    in this thread (a no-op without a tensor axis)."""
+    prev = current_tensor_group()
+    _tp.group = (None if mesh is None or mesh.tensor == 1
+                 else _TensorGroup(mesh.tensor, mesh.tensor_rank, mesh.tensor_group))
+    try:
+        yield
+    finally:
+        _tp.group = prev
+
+
+def all_gather_channels(x: torch.Tensor, tg: _TensorGroup) -> torch.Tensor:
+    """The tensor group's channel shards of ``x`` (last axis), rank after
+    rank: the global channel order."""
+    # gloo wants the output as the inputs stacked on their first axis
+    parts = torch.empty((tg.size * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
+                        device=x.device)
+    _all_gather_flat(parts, x.contiguous(), group=tg.group)
+    parts = parts.view((tg.size,) + tuple(x.shape))
+    return torch.movedim(parts, 0, -2).reshape(tuple(x.shape[:-1]) + (tg.size * x.shape[-1],))
+
+
+def full_channels(x: torch.Tensor, channels: int) -> torch.Tensor:
+    """``x`` with all ``channels`` channels on its last axis: itself when
+    it has them, else (under :func:`tensor_parallel`) its shards gathered
+    over the tensor group. Any other width raises."""
+    c = x.shape[-1]
+    if c == channels:
+        return x
+    tg = current_tensor_group()
+    if tg is None or c * tg.size != channels:
+        raise ValueError(f"a tensor of {c} channels where {channels} are expected"
+                         + ("" if tg is None else f" (or 1/{tg.size} of them)"))
+    return all_gather_channels(x, tg)

@@ -21,6 +21,15 @@
   sequential calls. The LIF readouts this needs come from the same CUDA
   kernel as the streaming step.
 
+- **Tensor parallelism** (``mesh.tensor: k``, a ``1 x k`` mesh under
+  torchrun): every process holds its channel shards of the weights and of
+  each stream's state. Rank 0 runs the HTTP server and the batching
+  thread; before each dispatch it broadcasts the command (the frames,
+  which stream's stored state each slot reads, which streams keep the
+  results, which streams are still live) and every rank runs the same
+  step in lockstep. The other ranks loop in :meth:`DetectionService.follow`
+  until rank 0 stops.
+
 Endpoints (JSON):
   POST /detect  {"stream": "cam0", "image": <base64 png/jpg>}
       -> {"boxes": [[x1,y1,x2,y2],...], "scores": [...], "classes": [...],
@@ -55,7 +64,14 @@ from .data.png import decode_png
 from .data.resize import resize_linear_u8
 from .models.detect import decode_predictions
 from .ops.nms import batched_nms
-from .parallel.mesh import refuse_unported_axes
+from .parallel.mesh import (
+    broadcast_object,
+    make_mesh,
+    maybe_init_distributed,
+    process_device,
+    refuse_unported_axes,
+    tp_shard_params,
+)
 
 
 def tree_map(fn, *trees):
@@ -84,15 +100,26 @@ class _Job:
 
 class DetectionService:
     """Device worker + per-stream state registry (transport-agnostic).
-    Runs on ``detector.device``."""
+    Runs on ``detector.device``.
+
+    ``mesh``: a ``1 x k`` tensor mesh (``make_mesh(1, tensor=k)``); every
+    rank of it builds the service with the whole ``params`` and keeps its
+    shards. Rank 0 (``lead``) takes the requests; the others call
+    :meth:`follow` (after :meth:`warmup`, as rank 0 does)."""
 
     def __init__(self, detector, params, conf: float = 0.3, iou: float = 0.45,
                  max_det: int = 100, max_streams: int = 64,
                  max_batch: int = 8, reply_timeout_s: float = 120.0,
-                 max_clip: int = 8):
+                 max_clip: int = 8, mesh=None):
+        if mesh is not None and mesh.size != 1:
+            raise ValueError("serve mesh must be a 1 x tensor latency mesh "
+                             "(parallel.mesh.make_mesh(1, tensor=k))")
         self.detector = detector
         self.device = detector.device
-        self.params = {k: v.to(self.device) for k, v in params.items()}
+        self.mesh = mesh if mesh is not None and mesh.tensor > 1 else None
+        self.lead = self.mesh is None or self.mesh.tensor_rank == 0
+        self.params = tp_shard_params({k: v.to(self.device) for k, v in params.items()},
+                                      self.mesh)
         self.conf, self.iou, self.max_det = conf, iou, max_det
         self.max_streams = max_streams
         self.reply_timeout_s = reply_timeout_s
@@ -143,7 +170,7 @@ class DetectionService:
     def _probe_state(self, b: int, h: int, w: int):
         frames = torch.zeros((1, b, h, w, 3), dtype=self.detector.dtype,
                              device=self.device)
-        return self.detector.apply(self.params, frames, None)[1]
+        return self.detector.apply(self.params, frames, None, mesh=self.mesh)[1]
 
     @staticmethod
     def _batch_axis(s1: torch.Tensor, s2: torch.Tensor) -> int:
@@ -164,9 +191,9 @@ class DetectionService:
                           iou_thres=self.iou, max_det=self.max_det)
         return {k: v.cpu().numpy() for k, v in out.items()}
 
-    def _predict(self, images_u8: np.ndarray, rec_states: tuple):
+    def _predict(self, images_u8: np.ndarray, rec_states: tuple, decode: bool = True):
         """(K, H, W, 3) images of K streams + their K B=1 states ->
-        (host detections, K new B=1 states)."""
+        (host detections, or None without ``decode``, K new B=1 states)."""
         if len(rec_states) == 1:
             rec_state = rec_states[0]
         else:
@@ -175,8 +202,8 @@ class DetectionService:
             )
         imgs = torch.from_numpy(images_u8).to(self.device)
         frames = preprocess_video(imgs[:, None], dtype=self.detector.dtype)
-        raw, new_state = self.detector.apply(self.params, frames, rec_state)
-        out = self._detections(raw)
+        raw, new_state = self.detector.apply(self.params, frames, rec_state, mesh=self.mesh)
+        out = self._detections(raw) if decode else None
         if len(rec_states) == 1:
             return out, (new_state,)
         # clone: a per-stream slice must not pin the whole batch's buffer.
@@ -186,17 +213,75 @@ class DetectionService:
             for i in range(len(rec_states))
         )
 
-    def _predict_clip(self, images_u8: np.ndarray, rec_state):
+    def _predict_clip(self, images_u8: np.ndarray, rec_state, decode: bool = True):
         """(T, H, W, 3) frames of one stream -> (host detections with one
-        row per frame, new state)."""
+        row per frame, or None without ``decode``, new state)."""
         imgs = torch.from_numpy(images_u8).to(self.device)
         frames = preprocess_video(imgs[None], dtype=self.detector.dtype)
         raw, new_state = self.detector.apply(self.params, frames, rec_state,
-                                             all_steps=True)
-        return self._detections(raw), new_state
+                                             all_steps=True, mesh=self.mesh)
+        return (self._detections(raw) if decode else None), new_state
+
+    def _clip_chain(self, images_u8: np.ndarray, state, decode: bool = True):
+        """A clip as a greedy chain of chunks (largest first), the state
+        carried across chunks on the device: (per-chunk host detections,
+        final state)."""
+        hosts = []
+        i, t_total = 0, images_u8.shape[0]
+        while i < t_total:
+            rem = t_total - i
+            size = next((s for s in reversed(self.clip_sizes) if s <= rem), 1)
+            seg = np.ascontiguousarray(images_u8[i : i + size])
+            if size == 1:
+                host, (state,) = self._predict(seg, (state,), decode)
+            else:
+                host, state = self._predict_clip(seg, state, decode)
+            hosts.append(host)
+            i += size
+        return hosts, state
+
+    # -- tensor-parallel lockstep -------------------------------------------
+    def _broadcast(self, command):
+        """Rank 0's ``command`` on every rank of the tensor group."""
+        if self.mesh is None:
+            return command
+        return broadcast_object(command, self.mesh.tensor_group)
+
+    def _tell(self, kind: str, **fields) -> None:
+        """Rank 0: send the next dispatch to the other ranks, with the
+        streams whose state is live (theirs drop the rest)."""
+        if self.mesh is not None:
+            with self._state_lock:
+                live = set(self._states)
+            self._broadcast({"kind": kind, "live": live, **fields})
+
+    def follow(self) -> None:
+        """A non-lead rank: run every dispatch rank 0 sends, in lockstep,
+        until it stops. Each stream's state here is this rank's channel
+        shard of it."""
+        if self.lead:
+            raise RuntimeError("follow() runs on the ranks other than the tensor group's first")
+        while True:
+            cmd = self._broadcast(None)
+            if cmd["kind"] == "stop":
+                return
+            if cmd["kind"] == "batch":
+                states = tuple(self._zero_state1 if s is None else self._states[s]
+                               for s in cmd["slots"])
+                _, new_states = self._predict(cmd["images"], states, decode=False)
+                kept = dict(zip(cmd["commit"], new_states))
+            else:  # clip
+                s = cmd["stream"]
+                state = self._states[s] if cmd["stored"] else self._zero_state1
+                kept = {s: self._clip_chain(cmd["images"], state, decode=False)[1]}
+            self._states = {s: st for s, st in self._states.items() if s in cmd["live"]}
+            self._states.update(kept)
 
     # -- lifecycle ---------------------------------------------------------
     def start(self):
+        if not self.lead:
+            raise RuntimeError("only the tensor group's first rank takes requests; "
+                               "the others call follow()")
         if not self._started:
             self._worker.start()
             self._started = True
@@ -368,9 +453,12 @@ class DetectionService:
             self._drop_stream_locked(self._lru[0])
 
     def _run(self):
+        if self.device.index is not None and self.device.type == "cuda":
+            torch.cuda.set_device(self.device)  # this thread's card: a rank's collectives
         while True:
             jobs = self._next_jobs()
             if jobs is None:
+                self._tell("stop")
                 # Answer anything still queued so no caller blocks on a
                 # retired worker.
                 leftovers = list(self._deferred)
@@ -400,6 +488,10 @@ class DetectionService:
                 images = np.zeros((k, *self.image_hw, 3), np.uint8)
                 for i, j in enumerate(jobs):
                     images[i] = j.image_u8
+                self._tell("batch", images=images,
+                           slots=[j.stream if s is not None else None
+                                  for j, (s, _) in zip(jobs, entries)] + [None] * (k - n),
+                           commit=[j.stream for j in jobs])
                 host, new_states = self._predict(images, tuple(states))
                 with self._state_lock:
                     for j, st, (_, gen0) in zip(jobs, new_states[:n], entries):
@@ -426,24 +518,13 @@ class DetectionService:
     def _run_clip(self, job: _Job) -> None:
         """One clip job: greedy chain of chunks (largest first), state
         carried across chunks on the device."""
-        t_total = job.image_u8.shape[0]
         with self._state_lock:
             self._prune_gen_locked({job.stream})
             st = self._states.get(job.stream)
             gen0 = self._gen.get(job.stream, 0)
         state = st if st is not None else self._zero_state1
-        hosts = []
-        i = 0
-        while i < t_total:
-            rem = t_total - i
-            size = next((s for s in reversed(self.clip_sizes) if s <= rem), 1)
-            seg = np.ascontiguousarray(job.image_u8[i : i + size])
-            if size == 1:
-                host, (state,) = self._predict(seg, (state,))
-            else:
-                host, state = self._predict_clip(seg, state)
-            hosts.append(host)
-            i += size
+        self._tell("clip", images=job.image_u8, stream=job.stream, stored=st is not None)
+        hosts, state = self._clip_chain(job.image_u8, state)
         with self._state_lock:
             self._commit_locked(job.stream, gen0, state)
         now = time.perf_counter()
@@ -550,10 +631,22 @@ def serve(cfg, weights: str | None, port: int = 8000, max_batch: int = 8,
     HTTP until interrupted. ``on_ready(httpd, service)``, when given, is
     called once the server listens (``port=0`` picks a free port, which
     ``httpd.server_address`` names); ``httpd.shutdown()`` from another
-    thread ends the call."""
+    thread ends the call.
+
+    ``mesh.tensor: k`` serves channel-sharded over a ``1 x k`` mesh of the
+    process group (launched by torchrun, ``mesh.coordinator`` or an
+    initialised group): rank 0 listens, the other ranks follow it and
+    return when it stops. Without k processes it raises; nothing falls
+    back to one device."""
     from .models.detector import Detector
 
     refuse_unported_axes(cfg.mesh, train=False)
+    mesh = None
+    if cfg.mesh.tensor > 1:
+        if not torch.distributed.is_initialized():
+            maybe_init_distributed(cfg, device)
+        mesh = make_mesh(1, tensor=cfg.mesh.tensor)
+        device = process_device(device)
     detector = Detector.from_config(cfg, device=device)
     if weights:
         params = load_weights(detector, weights)
@@ -561,12 +654,19 @@ def serve(cfg, weights: str | None, port: int = 8000, max_batch: int = 8,
         params = detector.init_params(torch.Generator().manual_seed(0))
         print("WARNING: serving a fresh random init (no --weights)", flush=True)
     service = DetectionService(detector, params, max_batch=max_batch,
-                               max_clip=max_clip).start()
+                               max_clip=max_clip, mesh=mesh)
+    if not service.lead:
+        service.warmup()
+        print(f"tensor rank {mesh.tensor_rank}/{mesh.tensor}: following rank 0", flush=True)
+        service.follow()
+        return
+    service.start()
     try:
         print("warming up serving shapes...", flush=True)
         service.warmup()
         httpd = ThreadingHTTPServer(("0.0.0.0", port), make_handler(service))
-        print(f"serving on :{httpd.server_address[1]} (device={detector.device})", flush=True)
+        tp = f", tensor-parallel over {mesh.tensor} processes" if mesh is not None else ""
+        print(f"serving on :{httpd.server_address[1]} (device={detector.device}{tp})", flush=True)
         if on_ready is not None:
             on_ready(httpd, service)
         try:

@@ -192,12 +192,21 @@ def load_backbone_params(path: str | Path, template_params: dict,
 
 
 def resume_or_init(cfg, template_state: dict, init_fn=None,
-                   device: str | torch.device = "cuda") -> tuple[dict, int, float]:
+                   device: str | torch.device = "cuda", place=None) -> tuple[dict, int, float]:
     """Returns (state, start_epoch, best_val_loss). With
     ``training.resume_training`` the state comes from
     ``training.weights_path``; a missing or unreadable file warns and falls
     through to a fresh start, where ``init_fn`` builds the real initial
-    state (the template may hold ``meta`` tensors)."""
+    state (the template may hold ``meta`` tensors). ``place`` maps the
+    whole loaded or fresh state to what this process keeps: under FSDP
+    every rank reads the same full file (or makes the same seeded init)
+    and keeps its own chunks (``fns.shard_state``, the JAX package's
+    ``place_state``)."""
+    state, start_epoch, best = _resume_or_init(cfg, template_state, init_fn, device)
+    return (place(state) if place is not None else state), start_epoch, best
+
+
+def _resume_or_init(cfg, template_state, init_fn, device):
     if cfg.training.resume_training:
         weights_path = Path(cfg.training.weights_path)
         if weights_path.exists():

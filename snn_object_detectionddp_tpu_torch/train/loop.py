@@ -12,6 +12,12 @@ makes the same best / latest decisions and keeps its collectives in
 lockstep, while only rank 0 writes event files, spike rates and
 checkpoints (other processes get a ``NullWriter``).
 
+FSDP runs (``make_step_fns(..., fsdp=True)``): the train state is sharded,
+so after each epoch's train steps every process joins one gather
+(``fns.gather_state``) and validation, the rank-0 spike-rate pass, the
+best-state snapshot and the checkpoint writes read that whole state: rank
+0 writes the same file format as an unsharded run.
+
 A loader is any sized iterable of batch dicts: ``images`` (B, T, H, W, 3)
 uint8, ``labels`` (B, M, 5), ``label_mask`` (B, M), optionally
 ``sample_mask`` (B,); numpy arrays or tensors.
@@ -124,8 +130,11 @@ def train_loop(
         state, train_loss, train_comps = train_one_epoch(state, fns, train_loader, logger, epoch)
         print(f"Average Training Loss: {train_loss}")
 
+        # The whole state on every process (FSDP; the state itself
+        # otherwise): the readers below run at the same point on all ranks.
+        whole = fns.gather_state(state)
         val_loss, val_comps, first_val_batch = validate_one_epoch(
-            state["params"], fns, val_loader, logger, epoch
+            whole["params"], fns, val_loader, logger, epoch
         )
         print(f"Average Validation Loss: {val_loss}")
         logger.epoch(epoch, train_loss, val_loss, train_comps, val_comps,
@@ -137,7 +146,7 @@ def train_loop(
         if main and detector is not None and first_val_batch is not None:
             images = torch.as_tensor(first_val_batch["images"]).to(detector.device)
             frames = preprocess_video(images, dtype=detector.dtype)
-            for name, rate in detector.spike_rates(state["params"], frames).items():
+            for name, rate in detector.spike_rates(whole["params"], frames).items():
                 writer.add_scalar(f"SpikeRates/{name}", rate, epoch)
 
         # val_loss is the global loss, the same on every process: every
@@ -149,7 +158,7 @@ def train_loop(
             # scheduled write, so best.pt fidelity does not depend on the
             # write cadence.
             if main:
-                best_snap = (tree_map(lambda t: t.detach().clone(), state), epoch)
+                best_snap = (tree_map(lambda t: t.detach().clone(), whole), epoch)
             print(f"New best model (epoch {epoch + 1}), val loss {best_val_loss:.4f}")
 
         # Checkpoint writes every `save_every_epochs` (0 = final epoch
@@ -157,7 +166,7 @@ def train_loop(
         cadence = getattr(cfg.training, "save_every_epochs", 1)
         if main and (epoch == epochs - 1 or (cadence and (epoch + 1) % cadence == 0)):
             latest = save_dir / "latest.pt"
-            ckptr.save(state, epoch, best_val_loss, latest)
+            ckptr.save(whole, epoch, best_val_loss, latest)
             if best_snap is not None:
                 snap_state, snap_epoch = best_snap
                 ckptr.wait()
@@ -165,6 +174,7 @@ def train_loop(
                 best_snap = None
                 print(f"Best checkpoint written to {save_dir / 'best.pt'}")
             print(f"Saved latest model checkpoint to {latest}")
+        del whole
 
     ckptr.wait()
     writer.flush()

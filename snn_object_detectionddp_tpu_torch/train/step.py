@@ -9,7 +9,10 @@ learning rate of this step. With a data mesh (parallel/mesh.py) every
 process computes the gradient of the GLOBAL-batch loss on its local batch
 and the gradients are summed across processes before the optimizer, so
 every process takes the step one device would take on the concatenated
-batch (the JAX package's shard_map branch).
+batch (the JAX package's shard_map branch). With ``fsdp`` the parameters
+and moments are sharded over the processes (parallel/mesh.py, part (c)):
+the step gathers the full parameters once, reduce-scatters the summed
+gradients and updates only the local chunks.
 
 The train state is a plain dict::
 
@@ -46,7 +49,17 @@ from torch.utils.checkpoint import (
 from ..data.encoding import preprocess_video
 from ..losses.detection import DetectionLoss, LossComponents
 from ..models.layers import CONV_OUT, conv_name
-from ..parallel.mesh import DataMesh, all_reduce_grads, refuse_unported_axes
+from ..parallel.mesh import (
+    DataMesh,
+    all_reduce_grads,
+    gather_params,
+    gather_state,
+    reduce_scatter_grads,
+    refuse_unported_axes,
+    shard_layout,
+    shard_state,
+    sharded_norm,
+)
 from .schedule import onecycle_lr
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -98,15 +111,19 @@ class Optimizer:
         return {k: bool(v) for k, v in mask.items()}
 
     @torch.no_grad()
-    def update(self, grads: dict, opt_state: dict, params: dict, lr: float) -> dict:
+    def update(self, grads: dict, opt_state: dict, params: dict, lr: float,
+               norm_fn=None) -> dict:
         """Apply one step in place to ``params`` and ``opt_state``'s
-        moments; returns the new opt_state dict (same tensors)."""
+        moments; returns the new opt_state dict (same tensors). The leaves
+        may be whole or, under FSDP, this rank's flat chunks of them (keyed
+        by the same names); ``norm_fn`` then takes the clip's global norm
+        over every rank's chunks (default :func:`global_norm`)."""
         names = list(params)
         frozen = self._frozen(params)
         groups = self.groups or {}
         g = [torch.zeros_like(grads[k]) if frozen.get(k) else grads[k] for k in names]
         # Global-norm clip, decided on the device (no host round trip).
-        norm = global_norm(g)
+        norm = (norm_fn or global_norm)(g)
         scale = torch.where(norm < self.grad_clip_norm, torch.ones_like(norm),
                             self.grad_clip_norm / norm)
         g = torch._foreach_mul(g, scale)
@@ -133,7 +150,10 @@ class Optimizer:
 
 
 def global_norm(tensors) -> torch.Tensor:
-    """sqrt of the sum of squares over a list of tensors (0-d fp32)."""
+    """sqrt of the sum of squares over a list of tensors (0-d fp32): the
+    norm of the per-tensor norms. Each tensor is read in its memory order,
+    so the gradients reach it contiguous (``_grads_of``): a leaf and its
+    flat FSDP chunk then sum in the same order."""
     tensors = list(tensors)
     if not tensors:
         return torch.zeros(())
@@ -188,11 +208,19 @@ def save_conv_policy(ctx, func, *args, **kwargs) -> CheckpointPolicy:
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def _identity(state):
+    return state
+
+
 class TrainStepFns(NamedTuple):
     train_step: Callable  # (state, batch) -> (state, metrics)
     eval_step: Callable  # (params, batch) -> metrics
     forward: Callable  # (params, frames_t, state?) -> (raw_maps, rec_state)
     grads: Callable  # (params, batch) -> ({name: gradient}, LossComponents)
+    # FSDP: full train state -> this rank's sharded state, and back (every
+    # rank together); the identity without FSDP.
+    shard_state: Callable = _identity
+    gather_state: Callable = _identity
 
 
 def make_step_fns(
@@ -204,6 +232,7 @@ def make_step_fns(
     grad_accum: int = 1,
     remat_policy: str | None = None,
     mesh: DataMesh | None = None,
+    fsdp: bool = False,
 ) -> TrainStepFns:
     """Step functions bound to a Detector + optimizer; they run on the
     detector's device (batches may arrive as numpy arrays or tensors on any
@@ -237,7 +266,27 @@ def make_step_fns(
     and ``eval_step`` reports the global loss. With ``grad_accum`` each
     process splits its local batch into microbatches, and microbatch ``i``
     is normalised over the ``i``-th microbatches of all processes together.
+    A mesh with a tensor axis raises ``ValueError``: tensor parallelism is
+    inference-only.
+
+    ``fsdp``: shard the parameters and AdamW moments over the mesh's data
+    axis (ZeRO, parallel/mesh.py part (c)); needs ``mesh``. ``train_step``
+    then takes and returns the sharded state of ``fns.shard_state(full
+    state)``: it gathers the full parameters once, runs forward and
+    backward on the local batch as above, reduce-scatters the summed
+    gradients and runs the optimizer on the local chunks, with the clip's
+    norm (and the ``grad_norm`` metric) taken over all ranks' chunks.
+    ``fns.gather_state`` makes a sharded state whole on every rank.
+    ``eval_step``, ``forward`` and ``grads`` take full parameters.
     """
+    if fsdp and mesh is None:
+        raise ValueError(
+            "fsdp=True requires a device mesh (mesh.fsdp shards the train state over the "
+            "mesh's data axis); pass mesh= or disable fsdp")
+    if mesh is not None and mesh.tensor > 1:
+        raise ValueError(
+            "mesh.tensor > 1 is inference-only (eval/serving latency); "
+            "training supports data and fsdp parallelism")
     if remat_policy in (None, "", "full"):
         context_fn = noop_context_fn
     elif remat_policy == "save_conv":
@@ -302,14 +351,21 @@ def make_step_fns(
         lc = _loss(leaves, batch)
         names = list(leaves)
         got = torch.autograd.grad(lc.total, [leaves[k] for k in names], allow_unused=True)
+        # contiguous: a conv weight's gradient may come back channels-last,
+        # and the clip's norm sums each tensor in memory order (global_norm)
         grads = {
-            k: torch.zeros_like(params[k]) if g is None else g for k, g in zip(names, got)
+            k: torch.zeros_like(params[k]) if g is None else g.contiguous()
+            for k, g in zip(names, got)
         }
         return grads, LossComponents(*(torch.as_tensor(x).detach() for x in lc))
+
+    layout = (shard_layout(dict(detector.module.named_parameters()), mesh.size)
+              if fsdp else None)
 
     def train_step(state: dict, batch: dict):
         batch = _to_device(batch)
         params = state["params"]
+        full = gather_params(params, layout, mesh) if fsdp else params
         if grad_accum > 1:
             k = grad_accum
             b = batch["images"].shape[0]
@@ -318,7 +374,7 @@ def make_step_fns(
             grads, lc = None, None
             for i in range(k):
                 mb = {key: v[i * (b // k) : (i + 1) * (b // k)] for key, v in batch.items()}
-                g, l = _grads_of(params, mb)
+                g, l = _grads_of(full, mb)
                 if grads is None:
                     grads, lc = g, l
                 else:
@@ -329,14 +385,20 @@ def make_step_fns(
             # per-component logging values (already normalized) are averaged.
             lc = lc._replace(box=lc.box / k, cls=lc.cls / k, dfl=lc.dfl / k)
         else:
-            grads, lc = _grads_of(params, batch)
-        # Each process holds d(global loss)/d(params) over its own batch:
-        # their sum is the whole gradient.
-        grads = all_reduce_grads(grads, mesh)
+            grads, lc = _grads_of(full, batch)
+        del full
         sched = state["sched"]
         lr = onecycle_lr(state["step"], *sched)
-        grad_norm = global_norm(grads.values())
-        opt_state = tx.update(grads, state["opt_state"], params, lr)
+        # Each process holds d(global loss)/d(params) over its own batch:
+        # their sum is the whole gradient.
+        if fsdp:
+            grads = reduce_scatter_grads(grads, layout, mesh)
+            norm_fn = partial(sharded_norm, mesh=mesh)
+        else:
+            grads = all_reduce_grads(grads, mesh)
+            norm_fn = global_norm
+        grad_norm = norm_fn(grads.values())
+        opt_state = tx.update(grads, state["opt_state"], params, lr, norm_fn=norm_fn)
         new_state = {
             "params": params,
             "opt_state": opt_state,
@@ -361,5 +423,11 @@ def make_step_fns(
         g, lc = _grads_of(params, _to_device(batch))
         return all_reduce_grads(g, mesh), lc
 
-    return TrainStepFns(train_step=train_step, eval_step=eval_step, forward=forward,
-                        grads=grads)
+    if not fsdp:
+        return TrainStepFns(train_step=train_step, eval_step=eval_step, forward=forward,
+                            grads=grads)
+    return TrainStepFns(
+        train_step=train_step, eval_step=eval_step, forward=forward, grads=grads,
+        shard_state=lambda state: shard_state(state, layout, mesh.rank),
+        gather_state=lambda state: gather_state(state, layout, mesh),
+    )

@@ -12,7 +12,15 @@ import pytest
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "snn_object_detectionddp_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "sklearn", "snn_object_detectionddp_tpu")
-SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
+# The multi-card script of FSDP and tensor parallelism runs on the card
+# machine as the port's entry points do.
+PARALLEL_SCRIPT = REPO / "scripts" / "torch_parallel_cards.py"
+SOURCES = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py", PARALLEL_SCRIPT]
+# FSDP and tensor parallelism: the modules they added to or changed.
+PARALLEL_MODULES = ("parallel/mesh.py", "train/step.py", "train/loop.py", "train/checkpoint.py",
+                    "models/layers.py", "models/convlstm.py", "models/token_lstm.py",
+                    "models/unet.py", "models/backbone.py", "models/detect.py",
+                    "models/detector.py", "evals/validator.py", "eval_2.py", "serve.py", "main.py")
 # The tracker benchmark, its flow, the overlays, the video, profiling and
 # NaN debugging.
 NEW_MODULES = ("data/color.py", "evals/flow.py", "evals/legacy.py", "eval.py", "video.py",
@@ -34,6 +42,7 @@ def test_port_sources_found():
     names = {p.relative_to(REPO).as_posix() for p in SOURCES}
     assert "snn_object_detectionddp_tpu_torch/serve.py" in names
     assert "chip_smoke.py" in names
+    assert "scripts/torch_parallel_cards.py" in names
     assert "snn_object_detectionddp_tpu_torch/train/step.py" in names
     assert "snn_object_detectionddp_tpu_torch/losses/detection.py" in names
     for new in ("kernels/lif.py", "kernels/build.py", "models/token_lstm.py", "evals/map.py",
@@ -73,7 +82,7 @@ def test_optional_packages_are_imported_lazily(path):
 DATA_PATH = sorted((PORT / "data").glob("*.py")) + [
     PORT / "main.py", PORT / "eval_2.py", PORT / "evals" / "validator.py", REPO / "chip_smoke.py",
     PORT / "evals" / "legacy.py", PORT / "eval.py", PORT / "video.py",
-    PORT / "utils" / "profiling.py", PORT / "utils" / "debug.py"]
+    PORT / "utils" / "profiling.py", PORT / "utils" / "debug.py", PARALLEL_SCRIPT]
 
 
 @pytest.mark.parametrize("path", DATA_PATH, ids=lambda p: p.relative_to(REPO).as_posix())
@@ -130,6 +139,29 @@ def test_new_modules_import_without_cv2():
     code = ("import sys; sys.modules['cv2'] = None\n"
             + "".join(f"import {n}\n" for n in names)
             + "assert sys.modules['cv2'] is None\n")
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
+                          timeout=300)
+    assert proc.returncode == 0, proc.stderr[-2000:]
+
+
+@pytest.mark.parametrize("module", PARALLEL_MODULES + ("scripts/torch_parallel_cards.py",))
+def test_parallel_paths_import_without_jax(module):
+    """Each module FSDP and tensor parallelism run through, and the
+    multi-card script, imports in a fresh process in which jax, flax and
+    the JAX package cannot be imported."""
+    import subprocess
+    import sys
+
+    if module.startswith("scripts/"):
+        load = ("import importlib.util as u\n"
+                f"spec = u.spec_from_file_location('m', {str(REPO / module)!r})\n"
+                "spec.loader.exec_module(u.module_from_spec(spec))\n")
+    else:
+        load = f"import snn_object_detectionddp_tpu_torch.{module[:-3].replace('/', '.')}\n"
+    code = ("import sys\n"
+            "for name in ('jax', 'jaxlib', 'flax', 'optax', 'snn_object_detectionddp_tpu'):\n"
+            "    sys.modules[name] = None\n" + load
+            + "assert all(sys.modules.get(n) is None for n in ('jax', 'flax'))\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True, text=True,
                           timeout=300)
     assert proc.returncode == 0, proc.stderr[-2000:]

@@ -206,7 +206,10 @@ def test_http_surface(service):
 
 
 def test_serve_rejects_tensor_parallel():
+    """Without a process group of two, a tensor axis of 2 raises: serving
+    never drops to one device (tests/test_torch_tensor_parallel.py serves
+    over two processes)."""
     cfg = Config()
     cfg.mesh.tensor = 2
-    with pytest.raises(NotImplementedError, match="tensor"):
+    with pytest.raises(ValueError, match="mesh.tensor=2 must divide the world size of 1"):
         serve(cfg, None, device="cpu")

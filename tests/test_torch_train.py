@@ -308,11 +308,15 @@ def test_step_options_that_raise(setup):
     assert callable(tstep.make_step_fns(tdet, ttx, sch, remat_policy="save_conv").train_step)
     with pytest.raises(ValueError, match="remat_policy"):
         tstep.make_step_fns(tdet, ttx, sch, remat_policy="half")
-    for key, val in (("spatial", 2), ("fsdp", True), ("tensor", 2)):
+    # spatial is unported; a tensor axis is inference-only; FSDP needs a mesh
+    for key, val, error, match in (("spatial", 2, NotImplementedError, "mesh.spatial"),
+                                   ("tensor", 2, ValueError, "inference-only")):
         cfg = _tiny(tconfig)
         setattr(cfg.mesh, key, val)
-        with pytest.raises(NotImplementedError, match="mesh"):
+        with pytest.raises(error, match=match):
             tstep.make_step_fns(TDetector.from_config(cfg, device="cpu"), ttx, sch)
+    with pytest.raises(ValueError, match="requires a device mesh"):
+        tstep.make_step_fns(tdet, ttx, sch, fsdp=True)
 
 
 @pytest.fixture(scope="module")
