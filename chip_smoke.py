@@ -147,6 +147,22 @@ Run from the repository root:  python3 chip_smoke.py
    cards, scripts/torch_parallel_cards.py --quick under torchrun on two
    processes (the FSDP step and the tensor-parallel predict against one
    card); with one card it prints that it skipped them and why.
+16. Spatial parallelism (parallel/mesh.py part (d)): A1, A2 and A3
+   against their plain versions at the local rows every rank of a spatial
+   group of 2, 4 or 8 gives each of the 20 spiking blocks at 480x640 (T=5
+   B=2; spikes, v_final, v_pre, g_x and g_v0 bit for bit, da/db within
+   SUM_RTOL of the summed |terms|), printing the shards of one or no row;
+   a shard with no row (the stride-32 blocks of a 64-row input over 4
+   ranks) launches nothing and is counted in skipped_empty, every other
+   shard launches its kernel once; the train step and make_predict_fn over
+   a one-rank NCCL group with mesh.spatial: 1 bit-equal to the library
+   step and the plain predict (20 A2 + 20 A3 a step, 20 A1 a predict); and
+   two spatial ranks of scripts/torch_parallel_cards.py --quick --only
+   spatial under torchrun against one process, each rank's A2/A3 launches
+   and skipped zero-row calls one a block: on two cards over NCCL, or
+   with one card both on it over gloo when its gloo takes CUDA tensors
+   for the all-to-all and the all-reduce (a two-process probe says), else
+   it prints that it skipped them and why.
 
 The bf16 phases run under set_tf32_policy("bf16"), as the command lines
 set it for the default model; the fp32 checks (4, 6, 7's card against
@@ -239,6 +255,7 @@ LSTM_SCORE_ATOL = 1e-2
 # parent code too (scripts/torch_lstm_batch_counts.py, both trees under
 # the bf16 TF32 policy).
 LSTM_COUNT_SLACK = 5
+SPATIAL_SIZES = (2, 4, 8)  # spatial groups whose row shards phase 16 holds the kernels at
 N_DP_STEPS = 3  # data-parallel steps held bit for bit against the library step
 N_ALLREDUCE_REPS = 20  # gradient all-reduces timed
 
@@ -1804,6 +1821,205 @@ def run_parallel_axes_phase(card, K, n_blocks, lif_shapes, gen, rng, scratch) ->
     return launches
 
 
+def check_row_shard_kernels(card, K, lif_mod, lif_shapes, gen) -> None:
+    """(i) A1, A2 and A3 at the local rows of every spiking block for each
+    spatial group size, plus a shard with no row; these launches compare
+    the kernels with their plain versions and are not counted as the main
+    path's."""
+    from snn_object_detectionddp_tpu_torch.parallel.mesh import row_partition
+
+    shapes, thin = {}, []
+    for s in SPATIAL_SIZES:
+        for name, (_, hh, ww, cc) in lif_shapes:
+            rows = [hi - lo for lo, hi in (row_partition(hh, s, r) for r in range(s))]
+            for r, n in enumerate(rows):
+                shapes.setdefault((n, ww, cc), f"{name} s={s} rank {r}")
+            if min(rows) <= 1:
+                thin.append(f"{name} s={s} ({hh} rows): {rows}")
+    # 64 input rows over 4 ranks: the stride-32 blocks have 2 rows, ranks 2 and 3 none
+    _, (_, _, w32, c32) = next(x for x in lif_shapes if x[0] == "unet.enc3")
+    shapes.setdefault((0, w32, c32), "unet.enc3 at a 64-row input, s=4 rank 2")
+    p = lif_mod.LIFParams()
+    sum_rel, launched = 0.0, 0
+    for (hl, ww, cc), label in sorted(shapes.items()):
+        tag = f"A1-A3 at {label} ({hl}x{ww}x{cc}, T={T_TRAIN} B={B_TRAIN})"
+        x4, a, b, v0 = lif_inputs((B_TRAIN, hl, ww, cc), T_TRAIN, gen)
+        c0, k0 = dict(K.launch_counts), dict(K.skipped_empty)
+        s1, vf1 = K.affine_lif_fwd(x4, a, b, p, v0)
+        s2, vpre, vf2 = K.affine_lif_fwd_res(x4, a, b, p, v0)
+        g_s = torch.randn(x4.shape, device="cuda", generator=gen).to(torch.bfloat16)
+        g_v = torch.randn(v0.shape, device="cuda", generator=gen)
+        g_x, g_a, g_b, g_v0 = K.affine_lif_bwd(vpre, x4, a, g_s, g_v, p)
+        torch.cuda.synchronize()
+        dl = {k: K.launch_counts[k] - c0[k] for k in K.KERNELS}
+        ds = {k: K.skipped_empty[k] - k0[k] for k in K.KERNELS}
+        want = (0, 1) if hl == 0 else (1, 0)
+        if any((dl[k], ds[k]) != want for k in K.KERNELS):
+            raise AssertionError(f"{tag}: launches {dl}, skipped {ds}; want {want} each")
+        launched += sum(dl.values())
+        r1 = lif_mod.affine_lif_tb_reference(x4, a, b, p, v0)
+        r2 = lif_mod.affine_lif_forward_reference(x4, a, b, p, v0, with_vpre=True)
+        rg = lif_mod.affine_lif_backward_reference(vpre, x4, a, g_s, g_v, p)
+        equal = {"A1 spikes": (s1, r1[0]), "A1 v_final": (vf1, r1[1]), "A2 spikes": (s2, r2[0]),
+                 "A2 v_final": (vf2, r2[1]), "A2 v_pre": (vpre, r2[3]), "A3 g_x": (g_x, rg[0]),
+                 "A3 g_v0": (g_v0, rg[3])}
+        differ = [k for k, (u, v) in equal.items() if u.shape != v.shape or not torch.equal(u, v)]
+        if differ:
+            raise AssertionError(f"{tag}: not bit-equal to the plain version: {differ}")
+        if hl:
+            g_cur = lif_mod.affine_lif_backward_reference(
+                vpre.float(), x4.float(), torch.ones_like(a), g_s.float(), g_v, p
+            )[0].view(T_TRAIN, B_TRAIN, hl, ww, cc)
+            abs_b = g_cur.abs().sum((2, 3))
+            abs_a = (g_cur * x4.float().view_as(g_cur)).abs().sum((2, 3))
+            for nm, got, ref, terms in (("da", g_a, rg[1], abs_a), ("db", g_b, rg[2], abs_b)):
+                rel = ((got - ref).abs() / (terms + 1e-30)).max().item()
+                sum_rel = max(sum_rel, rel)
+                if rel > SUM_RTOL:
+                    raise AssertionError(f"{tag}: {nm} error {rel} of the summed |terms|")
+        elif g_a.abs().max() or g_b.abs().max():
+            raise AssertionError(f"{tag}: a shard with no row has nonzero affine gradients")
+    print(f"[{card}] phase 16: A1, A2 and A3 at the {len(shapes)} row-shard shapes of the "
+          f"{len(lif_shapes)} blocks for s in {SPATIAL_SIZES} and one shard with no row: spikes, "
+          f"v_final, v_pre, g_x and g_v0 bit-equal to the plain versions, da/db worst "
+          f"{sum_rel:.3g} of the summed |terms| (limit {SUM_RTOL}); {launched} launches, the "
+          f"shard with no row launched none (skipped_empty 1 each); shards of one or no row: "
+          + "; ".join(thin))
+
+
+def spatial_one_rank_check(card, K, n_blocks, rng) -> dict:
+    """(ii) mesh.spatial: 1 over a one-rank NCCL group: the train step and
+    the predict bit-equal to the library step and the plain predict.
+    Returns their launches."""
+    from snn_object_detectionddp_tpu_torch.config import Config
+    from snn_object_detectionddp_tpu_torch.evals.validator import make_predict_fn
+    from snn_object_detectionddp_tpu_torch.models.detector import Detector
+    from snn_object_detectionddp_tpu_torch.parallel import mesh as pmesh
+    from snn_object_detectionddp_tpu_torch.train.step import init_state, make_optimizer, make_step_fns
+
+    torch.cuda.set_device(0)
+    pmesh.init_distributed(f"127.0.0.1:{free_port()}", 1, 0, device="cuda")
+    flags = (torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark,
+             torch.are_deterministic_algorithms_enabled())
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        pmesh.collective_barrier("cuda")
+        mesh = pmesh.make_mesh(1, spatial=1)
+        cfg = Config()  # yolo11m, 480x640, s2d4, ConvLSTM, bf16
+        h, w = cfg.model.image_size
+        det = Detector.from_config(cfg, device="cuda")
+        params = det.init_params(torch.Generator().manual_seed(SEED + 6))
+        tr = cfg.training
+        tx, sched = make_optimizer(tr.learning_rate, 10, tr.weight_decay, tr.grad_clip_norm,
+                                   tr.pct_start)
+        library, spatial = make_step_fns(det, tx, sched), make_step_fns(det, tx, sched, mesh=mesh)
+        clone = lambda: {k: v.clone() for k, v in params.items()}  # noqa: E731
+        st_lib, st_sp = init_state(clone(), tx, sched), init_state(clone(), tx, sched)
+        batch = moving_boxes_batch(rng, B_TRAIN, T_TRAIN, h, w, cfg.model.num_classes)
+        K.reset_launch_counts()
+        st_sp, m_sp = spatial.train_step(st_sp, batch)
+        torch.cuda.synchronize()
+        got = dict(K.launch_counts)
+        want = {"affine_lif_fwd": 0, "affine_lif_fwd_res": n_blocks, "affine_lif_bwd": n_blocks}
+        if got != want:
+            raise AssertionError(f"the spatial=1 step launched {got}, want {want}")
+        st_lib, m_lib = library.train_step(st_lib, batch)
+        m_sp = {k: float(v) for k, v in m_sp.items()}
+        m_lib = {k: float(v) for k, v in m_lib.items()}
+        diffs = [f"{part} {k}" for part in ("params", "mu", "nu") for k, v in (
+            st_lib["params"] if part == "params" else st_lib["opt_state"][part]).items()
+            if not torch.equal(v, st_sp["params"][k] if part == "params"
+                               else st_sp["opt_state"][part][k])]
+        if m_sp != m_lib or diffs:
+            raise AssertionError(f"spatial=1 over one rank is not bit-equal to the library step: "
+                                 f"metrics {m_sp} vs {m_lib}; {len(diffs)} tensors differ "
+                                 f"({diffs[:4]})")
+        images = rng.randint(0, 256, size=(B_TRAIN, T_TRAIN, h, w, 3), dtype=np.uint8)
+        K.reset_launch_counts()
+        got_p = make_predict_fn(det, mesh=mesh)(params, images)
+        torch.cuda.synchronize()
+        a1 = K.launch_counts["affine_lif_fwd"]
+        want_p = make_predict_fn(det)(params, images)
+        if a1 != n_blocks or not all(torch.equal(got_p[k], v) for k, v in want_p.items()):
+            raise AssertionError(f"predict with spatial=1: {a1} A1 launches, outputs equal "
+                                 f"{[torch.equal(got_p[k], v) for k, v in want_p.items()]}")
+        print(f"[{card}] phase 16: train step and make_predict_fn over a one-rank NCCL group "
+              f"with make_mesh(1, spatial=1), full width {h}x{w} bf16 T={T_TRAIN} B={B_TRAIN}: "
+              f"bit-equal to the library step (loss {m_sp['loss']:.6f}, grad_norm "
+              f"{m_sp['grad_norm']:.4f}, parameters, mu and nu) and to the plain predict "
+              f"({int(want_p['valid'].sum())} kept); launches {got} a step, {a1} A1 a predict")
+        got["affine_lif_fwd"] += a1
+        return got
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = flags[:2]
+        torch.use_deterministic_algorithms(flags[2])
+        torch.distributed.destroy_process_group()
+
+
+def gloo_probe(rank: int, port: int) -> None:
+    """Child of :func:`run_spatial_phase` (``--gloo-probe RANK PORT``): two
+    processes on card 0 over gloo run the collectives of spatial
+    parallelism on CUDA tensors (an uneven all-to-all and an all-reduce)
+    and check the results; exits non-zero if gloo refuses them."""
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank)
+    x = torch.arange(6.0, device="cuda").view(3, 2) + 10 * rank
+    ins, outs = ([1, 2], [1, 0]) if rank == 0 else ([0, 3], [2, 3])
+    out = torch.empty(sum(outs), 2, device="cuda")
+    dist.all_to_all_single(out, x, outs, ins)
+    want = [[0, 1]] if rank == 0 else [[2, 3], [4, 5], [10, 11], [12, 13], [14, 15]]
+    total = torch.ones(3, device="cuda")
+    dist.all_reduce(total)
+    if out.tolist() != want or total.tolist() != [2.0] * 3:
+        raise SystemExit(f"gloo on CUDA tensors gave {out.tolist()} (want {want}) and "
+                         f"{total.tolist()}")
+    dist.destroy_process_group()
+
+
+def run_spatial_phase(card, K, lif_mod, n_blocks, lif_shapes, gen, rng) -> dict:
+    """Item 16: spatial parallelism. Returns the launches of its main-path
+    runs (the spatial=1 step and predict)."""
+    t_phase = time.perf_counter()
+    check_row_shard_kernels(card, K, lif_mod, lif_shapes, gen)
+    launches = spatial_one_rank_check(card, K, n_blocks, rng)
+    torch.cuda.empty_cache()
+
+    # (iii) Two spatial ranks against one process.
+    script = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                          "torch_parallel_cards.py")
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+           script, "--quick", "--only", "spatial"]
+    n_cards = torch.cuda.device_count()
+    route = "two cards over NCCL"
+    if n_cards < 2:
+        port = free_port()
+        probes = [subprocess.Popen([sys.executable, os.path.abspath(__file__), "--gloo-probe",
+                                    str(r), str(port)], stdout=subprocess.PIPE,
+                                   stderr=subprocess.STDOUT, text=True) for r in range(2)]
+        logs = [p_.communicate(timeout=300)[0] for p_ in probes]
+        if any(p_.returncode for p_ in probes):
+            print(f"[{card}] phase 16: two spatial ranks skipped: one card "
+                  f"(torch.cuda.device_count() is {n_cards}) and its gloo refuses the spatial "
+                  f"collectives on CUDA tensors: {logs[0].strip()[-400:]}")
+            cmd = None
+        else:
+            cmd.append("--one-card")
+            route = "both on card 0 over gloo (one card; NCCL takes one process a card)"
+    if cmd is not None:
+        proc = subprocess.run(cmd, capture_output=True, text=True, timeout=900)
+        if proc.returncode:
+            raise AssertionError(f"two spatial ranks ({route}) failed:\n{proc.stdout[-3000:]}\n"
+                                 f"{proc.stderr[-3000:]}")
+        print(f"[{card}] phase 16: two spatial ranks, {route}, against one process: "
+              f"{proc.stdout.strip().splitlines()[-1]}")
+    print(f"phase 16 ok in {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def torchrun_epoch(card, scratch, fsdp: bool = False) -> str:
     """(ii) One epoch of the command line through torchrun (one process,
     NCCL) on the data phase's tree, the config read without PyYAML: the
@@ -2013,10 +2229,10 @@ def time_changed_convs(card) -> None:
     params = det.init_params(torch.Generator().manual_seed(SEED))
     calls, plain = [], layers.conv2d_nhwc
 
-    def record(x, weight, stride=1, f32_result=False, name=None):
+    def record(x, weight, stride=1, f32_result=False, name=None, rows=None):
         if f32_result:
             calls.append((x.detach().clone(), weight.detach().clone(), stride))
-        return plain(x, weight, stride, f32_result, name)
+        return plain(x, weight, stride, f32_result, name, rows)
 
     h, w = Config().model.image_size
     frames = torch.rand((T_TRAIN, B_TRAIN, h, w, 3), generator=torch.Generator().manual_seed(SEED))
@@ -3194,6 +3410,10 @@ def main() -> None:
         for k, v in run_parallel_axes_phase(card, K, n_blocks, lif_shapes, gen, rng,
                                             scratch).items():
             launches[k] += v
+        torch.cuda.empty_cache()
+        # -- phase 11: spatial parallelism (item 16) ------------------------
+        for k, v in run_spatial_phase(card, K, lif_mod, n_blocks, lif_shapes, gen, rng).items():
+            launches[k] += v
     finally:
         shutil.rmtree(scratch, ignore_errors=True)
 
@@ -3241,5 +3461,7 @@ def main() -> None:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--exported-child"]:
         exported_child(sys.argv[2:])
+    elif sys.argv[1:2] == ["--gloo-probe"]:
+        gloo_probe(int(sys.argv[2]), int(sys.argv[3]))
     else:
         main()

@@ -1,11 +1,14 @@
-"""FSDP training and tensor-parallel inference of the port across
-processes: checked against one process, and timed.
+"""FSDP training, tensor-parallel inference and spatial parallelism of
+the port across processes: checked against one process, and timed.
 
     python -m torch.distributed.run --standalone --nproc_per_node 4 \
-        scripts/torch_parallel_cards.py [--cpu] [--quick] [--only fsdp|tensor]
+        scripts/torch_parallel_cards.py [--cpu] [--quick] [--one-card] \
+        [--only fsdp|tensor|spatial]
 
 ``--cpu``: gloo on CPU processes; ``--quick``: the checks only, no
-timings, on 64x96 windows (full width); ``--only``: one of the two axes.
+timings, on 64x96 windows (full width); ``--only``: one of the three
+axes; ``--one-card``: every process on card 0 over gloo (NCCL takes one
+process a card), for the spatial checks on a host with one card.
 
 One process per card (NCCL), or with ``--cpu`` per CPU process (gloo, the
 tiny fp32 model of the tests at 64x64). Every process builds the model
@@ -47,6 +50,29 @@ at full width (yolo11m, 480x640), beside the card's name and power limit:
   two streams through the service it built while the other ranks follow,
   and every rank returns.
 
+Spatial parallelism (``--only spatial``), for every spatial size s of 2
+and 4 that divides the world, on a ``world/s x s`` ``data x spatial``
+mesh:
+
+- check, in fp32 on 64x96 windows on the card (with or without
+  ``--quick``): the train step and the predict, each data row on its
+  ``B_LOCAL`` windows of a global batch, against one process on the whole
+  batch (the FSDP check's tolerances for the step; the tensor-parallel
+  check's for the predict), a batch whose per-sample spike counts (summed
+  over each spatial group) differ being redrawn. At 64 rows the stride-64
+  map has one row, so a rank of each group owns none: the geometry JAX's
+  spatial step refuses. On the card each rank's step launches A2 and A3
+  once a block, but for the blocks where it owns no row, which it skips
+  and counts (``skipped_empty``).
+- timings (not ``--quick``), the default model in bf16 at full width: the
+  T=5 step's host ms at s = 1 (data parallelism over the world), 2 and 4
+  in turns (1, 2, 4, 4, 2, 1); the row exchanges (all-to-alls) and
+  statistic sums (all-reduces) of one step with the bytes a card
+  receives, and the device ms of the collectives a step from the profiler
+  beside the NVLink byte bound; the peak memory per card of a T=5 and a
+  T=10 step at each s with one train state resident, and of its forward
+  and backward alone over what was allocated before.
+
 Rank 0 prints one JSON line last.
 """
 
@@ -55,6 +81,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import os
 import sys
 import threading
 import time
@@ -71,6 +98,7 @@ import chip_smoke as cs  # noqa: E402
 from snn_object_detectionddp_tpu_torch.config import Config  # noqa: E402
 from snn_object_detectionddp_tpu_torch.data.encoding import preprocess_video  # noqa: E402
 from snn_object_detectionddp_tpu_torch.evals.validator import make_predict_fn  # noqa: E402
+from snn_object_detectionddp_tpu_torch.kernels import affine_lif as K  # noqa: E402
 from snn_object_detectionddp_tpu_torch.models.detector import (  # noqa: E402
     Detector,
     set_tf32_policy,
@@ -99,6 +127,200 @@ N_PROFILED = 10  # serving frames under the profiler
 N_COLLECTIVE = 20  # back-to-back collective calls timed
 NVLINK_BYTES_PER_S = 450e9  # H100 SXM NVLink, one direction a card
 SEED = 0
+
+
+def _spatial_sizes(world: int) -> list[int]:
+    return [s for s in (2, 4) if world % s == 0]
+
+
+def spatial_check(cpu: bool, dev, s: int, hw=None) -> dict:
+    cfg = _cfg(cpu, "f32", hw)
+    h, w = cfg.model.image_size
+    det = Detector.from_config(cfg, device=dev)
+    params = det.init_params(torch.Generator().manual_seed(SEED))
+    tx, sched = make_optimizer(1e-3, 10)
+    mesh = pmesh.make_mesh(dist.get_world_size() // s, spatial=s)
+    fns = make_step_fns(det, tx, sched, mesh=mesh)
+    n = mesh.size
+    rng = np.random.RandomState(SEED + 10 * s)
+    for attempt in range(ATTEMPTS):
+        batch = cs.moving_boxes_batch(rng, B_LOCAL * n, T, h, w, cfg.model.num_classes,
+                                      **_boxes(cfg))
+        mine = _rows(batch, mesh.rank * B_LOCAL, (mesh.rank + 1) * B_LOCAL)
+        counts, _ = _spike_counts(det, lambda: fns.grads(params, mine))
+        counts = counts.to(dev)
+        dist.all_reduce(counts, group=mesh.spatial_group)  # whole-map counts
+        K.reset_launch_counts()
+        state, m_s = fns.train_step(init_state({k: v.clone() for k, v in params.items()}, tx,
+                                               sched), mine)
+        _sync(dev)
+        # each rank's kernel launches in its step, and calls on a shard
+        # with no row (no launch): together one a block and kernel
+        ranks = [None] * dist.get_world_size()
+        dist.all_gather_object(ranks, {k: (K.launch_counts[k], K.skipped_empty[k])
+                                       for k in K.KERNELS[1:]})
+        m_s = {k: float(v) for k, v in m_s.items()}
+        got_p = make_predict_fn(det, mesh=mesh)(params, mine["images"])
+        everyone = pmesh.gather_to_main([(counts.cpu(), {k: v.cpu() for k, v in got_p.items()})],
+                                        mesh)
+        ok = torch.zeros(1, device=dev)
+        result = {}
+        if dist.get_rank() == 0:
+            library = make_step_fns(det, tx, sched)
+            ref_counts, _ = _spike_counts(det, lambda: library.grads(params, batch))
+            flips = int((torch.cat([c for c, _ in everyone], dim=1) != ref_counts).sum())
+            ref, m_lib = library.train_step(init_state({k: v.clone() for k, v in params.items()},
+                                                       tx, sched), batch)
+            m_lib = {k: float(v) for k, v in m_lib.items()}
+            mu_s, mu_lib = state["opt_state"]["mu"], ref["opt_state"]["mu"]
+            total = float(torch.sqrt(sum(v.double().pow(2).sum() for v in mu_lib.values())))
+            worst, worst_name = 0.0, ""
+            for k, v in mu_lib.items():
+                err = float((mu_s[k] - v).double().norm())
+                allowed = GRAD_RTOL * float(v.double().norm()) + GRAD_ATOL * total
+                if err / allowed > worst:
+                    worst, worst_name = err / allowed, k
+            rel = {k: abs(m_s[k] - m_lib[k]) / max(abs(m_lib[k]), 1e-30)
+                   for k in ("loss", "box", "cls", "dfl", "grad_norm")}
+            got = {k: torch.cat([o[k] for _, o in everyone]).numpy() for k in everyone[0][1]}
+            want = {k: v.cpu().numpy() for k, v in make_predict_fn(det)(params,
+                                                                        batch["images"]).items()}
+            v = want["valid"]
+            pred = dict(kept=int(v.sum()), valid_equal=bool((got["valid"] == v).all()))
+            if pred["valid_equal"] and v.any():
+                pred.update(
+                    classes_equal=bool((got["classes"][v] == want["classes"][v]).all()),
+                    score_err=float(np.abs(got["scores"][v] - want["scores"][v]).max()),
+                    box_err=float(np.abs(got["boxes"][v] - want["boxes"][v]).max()))
+            result = dict(s=s, data=n, attempt=attempt, spike_count_diffs=flips, spatial=m_s,
+                          library=m_lib, rel_err=rel, worst_leaf=worst_name,
+                          worst_of_allowance=worst, leaves=len(mu_lib), predict=pred,
+                          launches_and_skipped=ranks)
+            ok[0] = float(flips == 0)
+        dist.broadcast(ok, 0)
+        if ok.item():
+            if dist.get_rank() == 0:
+                if max(rel.values()) > LOSS_RTOL or worst > 1:
+                    raise AssertionError(f"spatial step disagrees with one process: {result}")
+                n_blocks = sum(isinstance(m, SpikingConvBlock) for m in det.module.modules())
+                if dev.type == "cuda" and any(
+                        sum(r[k]) != n_blocks or r[k][0] == 0 for r in ranks for k in r):
+                    raise AssertionError(f"a spatial step's launches plus skipped calls are not "
+                                         f"one a block ({n_blocks}): {ranks}")
+                if m_s["fg"] != m_lib["fg"] or not m_s["fg"] > 0:
+                    raise AssertionError(f"foreground anchors differ or none: {result}")
+                if (not pred["valid_equal"] or not v.any() or not pred["classes_equal"]
+                        or pred["score_err"] > SCORE_ATOL or pred["box_err"] > BOX_ATOL):
+                    raise AssertionError(f"spatial predict disagrees with one process: {result}")
+            return result
+        if dist.get_rank() == 0:
+            print(f"s={s} batch {attempt}: {result['spike_count_diffs']} per-sample spike counts "
+                  "differ between the spatial and the whole forward; drawing another", flush=True)
+    raise AssertionError(f"every one of {ATTEMPTS} batches had a spike flip")
+
+
+def _exchange_tally(fn) -> dict:
+    """The row exchanges (all-to-alls) and the GroupNorm sums (all-reduces,
+    forward and backward) that ``fn`` runs over the spatial group, with
+    the bytes this process receives in them."""
+    tally = {"all_to_all": 0, "rows_bytes": 0, "spatial_sums": 0, "sum_bytes": 0}
+    real_a2a = pmesh._alltoall
+    real_sum, real_back = pmesh._SpatialSum.forward, pmesh._SpatialSum.backward
+
+    def a2a(chunks, counts_in, counts_out, like, group):
+        out = real_a2a(chunks, counts_in, counts_out, like, group)
+        tally["all_to_all"] += 1
+        tally["rows_bytes"] += out.numel() * out.element_size()
+        return out
+
+    def ssum(ctx, x, group):
+        tally["spatial_sums"] += 1
+        tally["sum_bytes"] += x.numel() * x.element_size()
+        return real_sum(ctx, x, group)
+
+    def sback(ctx, g):
+        tally["spatial_sums"] += 1
+        tally["sum_bytes"] += g.numel() * g.element_size()
+        return real_back(ctx, g)
+
+    pmesh._alltoall = a2a
+    pmesh._SpatialSum.forward, pmesh._SpatialSum.backward = staticmethod(ssum), staticmethod(sback)
+    try:
+        fn()
+    finally:
+        pmesh._alltoall = real_a2a
+        pmesh._SpatialSum.forward = staticmethod(real_sum)
+        pmesh._SpatialSum.backward = staticmethod(real_back)
+    return tally
+
+
+def spatial_timing(dev) -> dict:
+    world = dist.get_world_size()
+    cfg = _cfg(False, "bf16")
+    h, w = cfg.model.image_size
+    det = Detector.from_config(cfg, device=dev)
+    params = det.init_params(torch.Generator().manual_seed(SEED))
+    tx, sched = make_optimizer(1e-4, 100)
+    sizes = [1] + _spatial_sizes(world)
+    meshes = {s: pmesh.make_mesh(world // s, spatial=s) for s in sizes}
+    fns = {s: make_step_fns(det, tx, sched, mesh=m) for s, m in meshes.items()}
+    states = {s: init_state({k: v.clone() for k, v in params.items()}, tx, sched) for s in sizes}
+    rng = np.random.RandomState(SEED + 5)
+    batches = {t: cs.moving_boxes_batch(rng, B_LOCAL * world, t, h, w, cfg.model.num_classes)
+               for t in (T, 2 * T)}
+
+    def mine(s, t):
+        m = meshes[s]
+        return _rows(batches[t], m.rank * B_LOCAL, (m.rank + 1) * B_LOCAL)
+
+    def step(s, t=T):
+        states[s], _ = fns[s].train_step(states[s], mine(s, t))
+
+    step_ms = {s: [] for s in sizes}
+    for s in sizes + sizes[::-1]:
+        dist.barrier()
+        _timed(lambda: step(s), 1, dev)  # warm-up
+        step_ms[s] += _timed(lambda: step(s), N_TIMED, dev)
+    exchanges, prof_ms = {}, {}
+    for s in sizes[1:]:
+        dist.barrier()
+        exchanges[s] = _exchange_tally(lambda: _timed(lambda: step(s), 1, dev))
+        prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                                  torch.profiler.ProfilerActivity.CUDA])
+        with prof:
+            step(s)
+            _sync(dev)
+        rows = cs.kernel_rows(prof)
+        total = sum(e.self_device_time_total for e in rows) / 1e3
+        a2a = sum(e.self_device_time_total for e in rows if "sendrecv" in e.key.lower()) / 1e3
+        red = sum(e.self_device_time_total for e in rows
+                  if "nccl" in e.key.lower() and "sendrecv" not in e.key.lower()) / 1e3
+        bound = exchanges[s]["rows_bytes"] / NVLINK_BYTES_PER_S * 1e3
+        prof_ms[s] = dict(device_ms=total, all_to_all_device_ms=a2a,
+                          all_reduce_device_ms=red, rows_link_bound_ms=bound)
+    # Peak memory a card with one train state resident: the whole step's,
+    # and over what was allocated before it, the forward and backward's
+    # (activations, gradients and their sums) alone.
+    states.clear()
+    peak = {}
+    for t in (T, 2 * T):
+        for s in sizes:
+            state = init_state({k: v.clone() for k, v in params.items()}, tx, sched)
+            dist.barrier()
+            torch.cuda.empty_cache()
+            before = torch.cuda.memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            _timed(lambda: fns[s].train_step(state, mine(s, t)), 1, dev)
+            step_peak = torch.cuda.max_memory_allocated(dev)
+            torch.cuda.reset_peak_memory_stats(dev)
+            _timed(lambda: fns[s].grads(params, mine(s, t)), 1, dev)
+            peak[f"s{s}_T{t}"] = dict(
+                step_peak=step_peak, before=before,
+                fwd_bwd_over_before=torch.cuda.max_memory_allocated(dev) - before)
+            del state
+    return dict(step_ms=step_ms, step_ms_median={s: float(np.median(v)) for s, v in step_ms.items()},
+                peak_bytes=peak, exchanges=exchanges, profile=prof_ms,
+                param_and_moment_bytes=3 * 4 * sum(v.numel() for v in params.values()))
 
 
 def _cfg(cpu: bool, precision: str, hw: tuple | None = None) -> Config:
@@ -404,14 +626,26 @@ def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--cpu", action="store_true", help="gloo on the CPU, the tiny fp32 model")
     ap.add_argument("--quick", action="store_true", help="the checks only, no timings")
-    ap.add_argument("--only", choices=("fsdp", "tensor"), default=None)
+    ap.add_argument("--only", choices=("fsdp", "tensor", "spatial"), default=None)
+    ap.add_argument("--one-card", action="store_true",
+                    help="every process on card 0 over gloo (the spatial checks)")
     args = ap.parse_args()
     if not args.cpu and not torch.cuda.is_available():
         sys.exit("torch_parallel_cards.py needs CUDA cards (or --cpu)")
     device = "cpu" if args.cpu else "cuda"
-    if not pmesh.maybe_init_distributed(Config(), device=device):
+    if args.one_card:
+        env = os.environ
+        if args.cpu or args.only != "spatial" or "MASTER_PORT" not in env:
+            sys.exit("--one-card runs the spatial checks (--only spatial) under torchrun")
+        dev = torch.device("cuda", 0)
+        torch.cuda.set_device(dev)
+        pmesh.init_distributed(f"{env['MASTER_ADDR']}:{env['MASTER_PORT']}",
+                               int(env["WORLD_SIZE"]), int(env["RANK"]), dev, backend="gloo")
+        pmesh.collective_barrier(dev)
+    elif not pmesh.maybe_init_distributed(Config(), device=device):
         sys.exit("launch with torch.distributed.run (torchrun)")
-    dev = pmesh.process_device(device)
+    else:
+        dev = pmesh.process_device(device)
     mesh = pmesh.make_mesh()
     out = {"world": mesh.size}
     try:
@@ -423,6 +657,10 @@ def main() -> None:
             out["fsdp_check"] = fsdp_check(args.cpu, mesh, dev, hw)
         if args.only in (None, "tensor"):
             out["tp_check"] = tp_check(args.cpu, dev, hw)
+        if args.only in (None, "spatial"):
+            out["spatial_check"] = [spatial_check(args.cpu, dev, s,
+                                                  None if args.cpu else QUICK_HW)
+                                    for s in _spatial_sizes(mesh.size)]
         if not args.quick:
             set_tf32_policy("bf16")
             if args.only in (None, "tensor"):
@@ -433,6 +671,9 @@ def main() -> None:
                     torch.cuda.empty_cache()
                 if args.only in (None, "tensor"):
                     out["tp_timing"] = pmesh.gather_to_main([tp_timing(dev)], mesh)
+                    torch.cuda.empty_cache()
+                if args.only in (None, "spatial"):
+                    out["spatial_timing"] = pmesh.gather_to_main([spatial_timing(dev)], mesh)
         if mesh.rank == 0:
             print(json.dumps(out, default=str), flush=True)
     finally:

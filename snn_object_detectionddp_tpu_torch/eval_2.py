@@ -13,7 +13,8 @@ the card; the config is read without PyYAML. Launched by torchrun on N
 processes, each evaluates its share of the windows on ``cuda:LOCAL_RANK``
 and the results cover all of them (evals/validator.py); with
 ``mesh.tensor: k`` the processes form a ``N/k x k`` mesh and each group of
-k shares its windows' forward channel-sharded.
+k shares its windows' forward channel-sharded; with ``mesh.spatial: s`` a
+``N/s x s`` mesh, each group of s sharing its windows' forward by rows.
 """
 
 from __future__ import annotations
@@ -31,7 +32,6 @@ from .parallel.mesh import (
     make_mesh,
     maybe_init_distributed,
     process_device,
-    refuse_unported_axes,
 )
 
 
@@ -39,11 +39,10 @@ def evaluate(cfg, weights: str | None = None, device: str | torch.device = "cuda
     """Evaluate ``weights`` (default ``<save_dir>/best.pt``) on the
     validation split that ``cfg`` names; returns the results dict. In a
     process group of more than one process the evaluation is split over a
-    ``data x tensor`` mesh (``mesh.data`` x ``mesh.tensor``);
-    ``mesh.spatial`` raises."""
-    refuse_unported_axes(cfg.mesh, train=False)
+    ``data x tensor`` or ``data x spatial`` mesh (``mesh.data`` x
+    ``mesh.tensor`` or ``mesh.spatial``)."""
     detector = Detector.from_config(cfg, device=device)
-    mesh = make_mesh(cfg.mesh.data, cfg.mesh.tensor)
+    mesh = make_mesh(cfg.mesh.data, spatial=cfg.mesh.spatial, tensor=cfg.mesh.tensor)
     weights_path = Path(weights) if weights else Path(cfg.training.save_dir) / "best.pt"
     if weights_path.exists():
         # a checkpoint of this package or a flax file of the JAX package
@@ -51,7 +50,7 @@ def evaluate(cfg, weights: str | None = None, device: str | torch.device = "cuda
     else:
         params = detector.init_params(torch.Generator().manual_seed(0))
         print(f"WARNING: no checkpoint at {weights_path}; evaluating fresh init.")
-    several = mesh.size > 1 or mesh.tensor > 1
+    several = mesh.size > 1 or mesh.tensor > 1 or mesh.spatial > 1
     return evaluate_model(cfg, detector, params, mesh=mesh if several else None)
 
 

@@ -22,7 +22,10 @@ results dict to the other ranks.
 With a ``data x tensor`` mesh the processes of one tensor group share
 each batch: every layer runs on their channel shards of the parameters
 (``tp_shard_params``), the full raw maps come out on each of them, and the
-data axis splits the windows as above.
+data axis splits the windows as above. With a ``data x spatial`` mesh the
+processes of one spatial group share each batch by rows: each
+preprocesses and runs its rows of the images, the whole raw maps come out
+on each of them, and NMS runs on them whole.
 """
 
 from __future__ import annotations
@@ -44,6 +47,7 @@ from ..parallel.mesh import (
     is_main_process,
     local_batch_size,
     pad_batch_to_devices,
+    spatial_rows,
     tp_shard_params,
 )
 from ..train.loop import _progress
@@ -68,15 +72,17 @@ def make_predict_fn(detector, conf=EVAL_CONF, iou=EVAL_IOU, max_det=EVAL_MAX_DET
     batches with the whole model. With a ``mesh`` that has a tensor axis,
     ``params`` are this rank's shards (``tp_shard_params(params, mesh)``),
     the processes of a tensor group call it together on the same images
-    and each gets the whole result."""
+    and each gets the whole result; with a spatial axis the processes of a
+    spatial group do, each running its rows of them."""
     reg_max = detector.cfg.model.hyp.reg_max
     nc = detector.cfg.model.num_classes
 
     @torch.no_grad()
     def predict(params, images_u8):
-        images = torch.as_tensor(images_u8).to(detector.device)
-        frames = preprocess_video(images, dtype=detector.dtype)
-        raw_maps, _ = detector.apply(params, frames, mesh=mesh)
+        images = torch.as_tensor(images_u8)
+        frames = preprocess_video(spatial_rows(images, mesh).to(detector.device),
+                                  dtype=detector.dtype)
+        raw_maps, _ = detector.apply(params, frames, mesh=mesh, height=images.shape[2])
         boxes, scores = decode_predictions(
             raw_maps, reg_max, nc, image_hw=tuple(images.shape[2:4])
         )
@@ -152,12 +158,12 @@ def evaluate_model(cfg, detector, params, batch_size: int | None = None, mesh=No
     padded last-batch rows never reach the metrics, and the results dict,
     printed and returned. ``params`` must be on the detector's device.
 
-    ``mesh``: a ``data x tensor`` mesh. The global batch (``batch_size``,
-    rounded up to a multiple of the data axis) is split over the data
-    axis, each tensor group predicts its contiguous share of the windows
-    without padding on its channel shards of the (whole) ``params``, and
-    every process returns the results over all windows; rank 0 prints
-    them."""
+    ``mesh``: a ``data x tensor`` or ``data x spatial`` mesh. The global
+    batch (``batch_size``, rounded up to a multiple of the data axis) is
+    split over the data axis, each tensor (spatial) group predicts its
+    contiguous share of the windows without padding on its channel shards
+    of the (whole) ``params`` (its rows of the images), and every process
+    returns the results over all windows; rank 0 prints them."""
     index = DSECIndex(cfg, "train")
     _, val_idx = train_val_split(index, seed=cfg.training.seed)
     bs = batch_size or cfg.training.batch_size

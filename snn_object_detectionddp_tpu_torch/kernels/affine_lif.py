@@ -54,6 +54,9 @@ KERNELS = ("affine_lif_fwd", "affine_lif_fwd_res", "affine_lif_bwd")
 # Launches of each kernel since the last reset_launch_counts(): a count
 # goes up by one where its kernel is launched, and nowhere else.
 launch_counts = dict.fromkeys(KERNELS, 0)
+# Calls on an empty problem (a spatial rank that owns no row of a map):
+# no grid is launched, and the call is counted here instead.
+skipped_empty = dict.fromkeys(KERNELS, 0)
 
 THREADS = 128  # per block: small enough that the late-stage shapes fill 132 SMs
 BWD_THREADS = 256  # the backward's, where that still leaves BWD_MIN_BLOCKS blocks
@@ -77,6 +80,7 @@ MAX_GRID_X, MAX_GRID_Y = 2**31 - 1, 65535
 def reset_launch_counts() -> None:
     for name in KERNELS:
         launch_counts[name] = 0
+        skipped_empty[name] = 0
 
 
 class LaunchPlan(NamedTuple):
@@ -278,6 +282,8 @@ def affine_lif_fwd(
     reads = torch.empty_like(x4) if with_readouts else None
     if v0.numel():
         _forward("affine_lif_fwd", x4, a, b, p, v0, (s, vfin, reads), dims)
+    else:
+        skipped_empty["affine_lif_fwd"] += 1
     check_kernel_outputs("affine_lif_fwd", s, vfin, reads)
     if with_readouts:
         return s, vfin, reads
@@ -297,6 +303,8 @@ def affine_lif_fwd_res(
     vfin = torch.empty_like(v0)
     if v0.numel():
         _forward("affine_lif_fwd_res", x4, a, b, p, v0, (s, vpre, vfin), dims)
+    else:
+        skipped_empty["affine_lif_fwd_res"] += 1
     check_kernel_outputs("affine_lif_fwd_res", s, vpre, vfin)
     return s, vpre, vfin
 
@@ -371,6 +379,7 @@ def affine_lif_bwd(
     g_x = torch.empty_like(x4)
     g_v0 = torch.empty_like(g_vfin)
     if not g_vfin.numel():
+        skipped_empty["affine_lif_bwd"] += 1
         return g_x, torch.zeros_like(a), torch.zeros_like(a), g_v0
     g_a = torch.empty_like(a)
     g_b = torch.empty_like(a)

@@ -23,11 +23,11 @@ runs on ``cuda:LOCAL_RANK``, feeds its own shard of the sample lists and
 ``training.batch_size / world`` samples a step, and rank 0 writes the
 checkpoints (parallel/mesh.py). ``mesh.fsdp: true`` also shards the
 parameters and AdamW moments over the processes; the checkpoints stay
-whole. ``mesh.tensor > 1`` serves and evaluates (eval_2, serve) and raises
-``ValueError`` in training.
-
-Not ported, raising with the ROADMAP item that ports it: spatial
-parallelism (``mesh.spatial``).
+whole. ``mesh.spatial: s`` makes a ``world/s x s`` ``data x spatial``
+mesh: the s processes of a spatial group feed the same samples and each
+runs its rows of every image (parallel/mesh.py part (d)); it composes
+with ``mesh.fsdp``. ``mesh.tensor > 1`` serves and evaluates (eval_2,
+serve) and raises ``ValueError`` in training.
 """
 
 from __future__ import annotations
@@ -72,7 +72,7 @@ def train_code(cfg, detector) -> dict:
 
 
 def _train(cfg, detector) -> dict:
-    mesh = make_mesh(cfg.mesh.data)
+    mesh = make_mesh(cfg.mesh.data, spatial=cfg.mesh.spatial)
     save_dir = Path(cfg.training.save_dir)
     if is_main_process():
         save_dir.mkdir(parents=True, exist_ok=True)
@@ -80,8 +80,10 @@ def _train(cfg, detector) -> dict:
     index = DSECIndex(cfg, "train")
     train_idx, val_idx = train_val_split(index, seed=cfg.training.seed)
     train_idx, val_idx = apply_train_debug(train_idx, val_idx, cfg.debug_train)
-    # Every process feeds its own shard of the sample lists.
-    train_idx, val_idx = host_shard_indices(train_idx), host_shard_indices(val_idx)
+    # Every data rank feeds its own shard of the sample lists (the ranks of
+    # a spatial group the same one).
+    train_idx, val_idx = (host_shard_indices(idx, mesh.size, mesh.rank)
+                          for idx in (train_idx, val_idx))
 
     tr = cfg.training
     # The batch axis tiles over the data mesh.
@@ -89,7 +91,7 @@ def _train(cfg, detector) -> dict:
     if bs % n_dev:
         bs = pad_batch_to_devices(bs, n_dev)
         print(f"Rounding batch_size up to {bs} (multiple of {n_dev} devices)")
-    loader_kw = dict(batch_size=local_batch_size(bs), max_boxes=cfg.model.max_boxes,
+    loader_kw = dict(batch_size=local_batch_size(bs, n_dev), max_boxes=cfg.model.max_boxes,
                      num_threads=tr.num_workers, prefetch=cfg.runtime.prefetch)
     train_loader = BatchLoader(index, train_idx, shuffle=True, seed=tr.seed, drop_last=True,
                                **loader_kw)

@@ -7,8 +7,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..parallel.mesh import full_channels
-from .layers import SpikingConvBlock, SpikingDownBlock
+from ..parallel.mesh import current_spatial_group, fetch_rows, full_channels
+from .layers import SpikingConvBlock, SpikingDownBlock, out_rows
 from .lif import LIFParams
 
 # (stem, p3, p4, p5) channel widths and per-stage extra block count.
@@ -36,6 +36,18 @@ def space_to_depth(x_t: torch.Tensor, block: int = 2) -> torch.Tensor:
     nd = len(lead)
     perm = tuple(range(nd)) + (nd, nd + 2, nd + 1, nd + 3, nd + 4)
     return x.permute(perm).reshape(*lead, h // block, w // block, c * block * block)
+
+
+def space_to_depth_rows(x_t: torch.Tensor, block: int, rows: int | None) -> torch.Tensor:
+    """:func:`space_to_depth`; under spatial parallelism of a map of
+    ``rows`` global rows, each rank first fetches the ``block`` input rows
+    of each of its output rows (none moves when the input partition is
+    already aligned to ``block``, as at 480 rows over 2, 3, 4, 5 or 8)."""
+    sg = current_spatial_group()
+    if sg is not None:
+        parts = [sg.part(rows // block, r) for r in range(sg.size)]
+        x_t = fetch_rows(x_t, rows, [a * block for a, _ in parts], [b * block for _, b in parts])
+    return space_to_depth(x_t, block)
 
 
 class SpikingBackbone(nn.Module):
@@ -67,28 +79,41 @@ class SpikingBackbone(nn.Module):
                         SpikingConvBlock(c, c, lif, dtype=dtype))
             prev = c
 
-    def forward(self, x_t: torch.Tensor, state: dict | None = None):
+    def stem_rows(self, rows: int | None) -> int | None:
+        """Global rows after the stem of an input of ``rows`` rows."""
+        if rows is None or self.stem == "conv":
+            return out_rows(out_rows(rows, 2), 2)
+        return rows // 4
+
+    def forward(self, x_t: torch.Tensor, state: dict | None = None, rows: int | None = None):
+        """``rows``: the global rows of ``x_t`` under spatial parallelism;
+        the features then have ``ceil(stem_rows / 2**i)`` rows."""
         state = state or {}
         new_state: dict = {}
         if self.stem == "s2d4":
-            x = space_to_depth(x_t, 4)
-            x, new_state["stem1"] = self.stem1(x, state.get("stem1"))
-            x, new_state["stem2"] = self.stem2(x, state.get("stem2"))
+            x = space_to_depth_rows(x_t, 4, rows)
+            x, new_state["stem1"] = self.stem1(x, state.get("stem1"), rows=self.stem_rows(rows))
+            x, new_state["stem2"] = self.stem2(x, state.get("stem2"), rows=self.stem_rows(rows))
         elif self.stem == "s2d":
-            x, new_state["stem1"] = self.stem1(space_to_depth(x_t), state.get("stem1"))
+            half = None if rows is None else rows // 2
+            x, new_state["stem1"] = self.stem1(space_to_depth_rows(x_t, 2, rows),
+                                               state.get("stem1"), rows=half)
             # space-to-depth mixes channels: a channel shard is gathered first
             x = full_channels(x, self.stem1.features)
-            x, new_state["stem2"] = self.stem2(space_to_depth(x), state.get("stem2"))
+            x, new_state["stem2"] = self.stem2(space_to_depth_rows(x, 2, half),
+                                               state.get("stem2"), rows=self.stem_rows(rows))
         else:
-            x, new_state["stem1"] = self.stem1(x_t, state.get("stem1"))
-            x, new_state["stem2"] = self.stem2(x, state.get("stem2"))
+            x, new_state["stem1"] = self.stem1(x_t, state.get("stem1"), rows=rows)
+            x, new_state["stem2"] = self.stem2(x, state.get("stem2"), rows=out_rows(rows, 2))
 
         feats = []
+        n = self.stem_rows(rows)
         for i in range(3):
             key = f"stage{i + 1}"
-            x, new_state[key] = getattr(self, key)(x, state.get(key))
+            x, new_state[key] = getattr(self, key)(x, state.get(key), rows=n)
+            n = out_rows(n, 2)
             for d in range(self.depth):
                 bkey = f"{key}_block{d}"
-                x, new_state[bkey] = getattr(self, bkey)(x, state.get(bkey))
+                x, new_state[bkey] = getattr(self, bkey)(x, state.get(bkey), rows=n)
             feats.append(x)
         return tuple(feats), new_state

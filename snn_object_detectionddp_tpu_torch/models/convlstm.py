@@ -12,6 +12,10 @@ sharded (parallel/mesh.py::tp_shard_leaf), so a rank holds i, f, g and o
 of its own slice of the hidden channels: the gate math is local and ``h``
 and ``c`` stay channel-sharded; the hidden half's conv reads ``h``
 gathered whole.
+
+Under spatial parallelism ``x_t``, ``h`` and ``c`` hold this rank's rows;
+both halves of the gate conv fetch their halo rows (the hidden half at
+every step), and the gate math is per pixel.
 """
 
 from __future__ import annotations
@@ -43,7 +47,8 @@ class ConvLSTM2d(nn.Module):
             t.zero_()
             t[self.hidden : 2 * self.hidden] = 1.0
 
-    def forward(self, x_t: torch.Tensor, state: tuple | None = None):
+    def forward(self, x_t: torch.Tensor, state: tuple | None = None, rows: int | None = None):
+        """``rows``: the global rows of ``x_t`` under spatial parallelism."""
         t, b, h, w, c = x_t.shape
         in_ch = self.in_ch
         hidden = self.gates_bias.shape[0] // 4  # this rank's share of the hidden channels
@@ -51,7 +56,7 @@ class ConvLSTM2d(nn.Module):
             zeros = torch.zeros((b, h, w, hidden), dtype=torch.float32, device=x_t.device)
             state = (zeros, zeros)
         xb = x_t.reshape(t * b, h, w, c).to(self.dtype)
-        x_gates = conv2d_nhwc(xb, self.gates_kernel[:, :in_ch], name=CONV_OUT)
+        x_gates = conv2d_nhwc(xb, self.gates_kernel[:, :in_ch], name=CONV_OUT, rows=rows)
         x_gates = x_gates.view(t, b, h, w, 4 * hidden)
         k_h = self.gates_kernel[:, in_ch:]
         h_state, c_state = state
@@ -59,7 +64,7 @@ class ConvLSTM2d(nn.Module):
         for step in range(t):
             # the hidden half's fp32 result feeds the fp32 gate sum unrounded;
             # the input half was stored in the compute dtype (x_gates)
-            h_gates = conv2d_nhwc(h_state.to(self.dtype), k_h, f32_result=True)
+            h_gates = conv2d_nhwc(h_state.to(self.dtype), k_h, f32_result=True, rows=rows)
             gates = x_gates[step].float() + h_gates.float() + self.gates_bias
             i, f, g, o = gates.chunk(4, -1)
             c_state = torch.sigmoid(f) * c_state + torch.sigmoid(i) * torch.tanh(g)

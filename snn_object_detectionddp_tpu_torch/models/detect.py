@@ -14,7 +14,7 @@ import torch
 from torch import nn
 
 from ..ops.anchors import dist2bbox, make_anchors
-from ..parallel.mesh import full_channels
+from ..parallel.mesh import current_spatial_group, full_channels, gather_rows
 from .layers import ConvBlock, Conv1x1
 
 STRIDES = (8, 16, 32)
@@ -23,7 +23,10 @@ STRIDES = (8, 16, 32)
 class DetectHead(nn.Module):
     """List of 3 maps (B, H/s, W/s, C_s) -> list of 3 raw maps
     (B, H/s, W/s, 4*reg_max + nc) in fp32, box logits first. Under tensor
-    parallelism the box and class outputs are gathered whole."""
+    parallelism the box and class outputs are gathered whole; under
+    spatial parallelism the convs run on the local rows (``rows``: each
+    map's global rows) and each raw map is gathered whole by rows, so the
+    anchors and the decoding are global."""
 
     def __init__(self, num_classes: int, feat_channels: tuple[int, int, int],
                  reg_max: int = 16, dtype: torch.dtype = torch.bfloat16):
@@ -42,14 +45,15 @@ class DetectHead(nn.Module):
             setattr(self, f"cls{i}_conv2", ConvBlock(c3, c3, dtype=dtype))
             setattr(self, f"cls{i}_out", Conv1x1(c3, num_classes, prior, dtype=dtype))
 
-    def forward(self, feats: list[torch.Tensor]) -> list[torch.Tensor]:
+    def forward(self, feats: list[torch.Tensor], rows=(None, None, None)) -> list[torch.Tensor]:
         outs = []
-        for i, x in enumerate(feats):
-            box = getattr(self, f"box{i}_conv2")(getattr(self, f"box{i}_conv1")(x))
+        for i, (x, n) in enumerate(zip(feats, rows)):
+            box = getattr(self, f"box{i}_conv2")(getattr(self, f"box{i}_conv1")(x, rows=n), rows=n)
             box = full_channels(getattr(self, f"box{i}_out")(box), 4 * self.reg_max)
-            cls = getattr(self, f"cls{i}_conv2")(getattr(self, f"cls{i}_conv1")(x))
+            cls = getattr(self, f"cls{i}_conv2")(getattr(self, f"cls{i}_conv1")(x, rows=n), rows=n)
             cls = full_channels(getattr(self, f"cls{i}_out")(cls), self.num_classes)
-            outs.append(torch.cat([box, cls], -1).float())
+            out = torch.cat([box, cls], -1).float()
+            outs.append(out if current_spatial_group() is None else gather_rows(out, n))
         return outs
 
 

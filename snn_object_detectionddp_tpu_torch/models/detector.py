@@ -16,6 +16,12 @@ mesh=mesh)`` with ``shards = tp_shard_params(params, mesh)``
 (parallel/mesh.py) runs every layer on this rank's channel shards and
 returns the full raw maps; the recurrent state it returns stays
 channel-sharded, and :meth:`Detector.gather_state` makes it whole.
+
+Spatial parallelism (training and evaluation): ``detector.apply(params,
+frames_rows, state, mesh=mesh, height=H)`` on every rank of a spatial
+group, each with its rows ``row_partition(H)`` of the frames
+(``parallel.mesh.spatial_rows``), returns the whole raw maps on every rank
+and this rank's rows of the recurrent state.
 """
 
 from __future__ import annotations
@@ -27,7 +33,15 @@ import torch
 from torch import nn
 
 from ..config import Config
-from ..parallel.mesh import full_channels, tensor_parallel
+from ..parallel.mesh import (
+    current_spatial_group,
+    full_channels,
+    gather_rows,
+    spatial_parallel,
+    spatial_rows,
+    spatial_sum,
+    tensor_parallel,
+)
 from .backbone import SpikingBackbone, preset_channels
 from .detect import DetectHead, decode_predictions
 from .lif import LIFParams
@@ -56,13 +70,17 @@ class SNNTemporalDetector(nn.Module):
         """``state_only`` advances the recurrent state and returns
         (None, state) without running the decoder and the head."""
         state = state or {}
-        feats, bstate = self.backbone(frames_t, state.get("backbone"))
+        sg = current_spatial_group()
+        rows = None if sg is None else sg.height
+        feats, bstate = self.backbone(frames_t, state.get("backbone"), rows=rows)
+        p3_rows = None if rows is None else -(-self.backbone.stem_rows(rows) // 2)
         refined, ustate = self.unet(feats, state.get("unet"), all_steps=all_steps,
-                                    state_only=state_only)
+                                    state_only=state_only, rows=p3_rows)
         new_state = {"backbone": bstate, "unet": ustate}
         if state_only:
             return None, new_state
-        return self.head(list(refined)), new_state
+        up = self.unet.decoder_rows(p3_rows)
+        return self.head(list(refined), rows=(up[6], up[5], up[4])), new_state
 
 
 def set_tf32_policy(precision: str) -> None:
@@ -169,64 +187,100 @@ class Detector:
 
     @torch.no_grad()
     def apply(self, params: dict, frames_t: torch.Tensor, state: dict | None = None,
-              all_steps: bool = False, mesh=None):
+              all_steps: bool = False, mesh=None, height: int | None = None):
         """Gradient-free forward (serving, evaluation). With a ``mesh``
         that has a tensor axis, ``params`` are this rank's shards
         (``tp_shard_params``) and every rank of the tensor group must call
-        this together."""
+        this together. With a spatial axis, ``frames_t`` are this rank's
+        rows of frames of ``height`` global rows, every rank of the spatial
+        group calls this together and each gets the whole raw maps."""
         with tensor_parallel(mesh):
-            return self.apply_train(params, frames_t, state, all_steps=all_steps)
+            return self.apply_train(params, frames_t, state, all_steps=all_steps, mesh=mesh,
+                                    height=height)
 
     @torch.no_grad()
     def gather_state(self, state: dict, mesh=None) -> dict:
-        """The recurrent state of a tensor-parallel forward made whole:
-        each leaf's channel shards gathered over the tensor group (a leaf
-        that is already whole is kept). Every rank of the group must call
-        this together."""
+        """The recurrent state of a tensor- or spatial-parallel forward
+        made whole: each leaf's channel shards gathered over the tensor
+        group, or its rows over the spatial group (a leaf that is already
+        whole is kept). Every rank of the group must call this together."""
+
+        def rows_whole(x):
+            n = spatial_sum(x.new_tensor([float(x.shape[-3])]))
+            return gather_rows(x, int(n.item()))
 
         def walk(node, mod):
             if isinstance(node, dict):
                 return {k: walk(v, getattr(mod, k)) for k, v in node.items()}
-            width = getattr(mod, "features", None) or mod.hidden
             if isinstance(node, (tuple, list)):
-                return type(node)(full_channels(x, width) for x in node)
-            return full_channels(node, width)
+                return type(node)(walk(x, mod) for x in node)
+            if current_spatial_group() is not None:  # the token LSTM's carry is whole
+                return node if getattr(mod, "rows_replicated", False) else rows_whole(node)
+            return full_channels(node, getattr(mod, "features", None) or mod.hidden)
 
-        with tensor_parallel(mesh):
+        with tensor_parallel(mesh), spatial_parallel(mesh):
             return walk(state, self.module)
 
     def apply_train(self, params: dict, frames_t: torch.Tensor, state: dict | None = None,
-                    all_steps: bool = False, state_only: bool = False):
+                    all_steps: bool = False, state_only: bool = False, mesh=None,
+                    height: int | None = None):
         """Forward that records a gradient where ``params`` (or the state)
         require one: on the card the spiking blocks then run the
-        residual-saving forward and the backward kernel."""
-        return torch.func.functional_call(
-            self.module, params, (frames_t, state),
-            {"all_steps": all_steps, "state_only": state_only}, strict=True,
-        )
+        residual-saving forward and the backward kernel. ``mesh`` /
+        ``height``: as :meth:`apply`, for a spatial axis (the context is
+        entered here, so a checkpoint's recompute runs sharded too)."""
+        if mesh is not None and mesh.spatial > 1 and height is None:
+            raise ValueError("a spatial mesh needs the frames' global row count (height=)")
+        with spatial_parallel(mesh, height):
+            return torch.func.functional_call(
+                self.module, params, (frames_t, state),
+                {"all_steps": all_steps, "state_only": state_only}, strict=True,
+            )
+
+    def rows_replicated_params(self) -> set:
+        """Names of the parameters every spatial rank uses the same way on
+        whole maps (the token LSTM): their gradients are whole on every
+        rank, so a spatial step does not sum them."""
+        return {f"{mn}.{pn}" for mn, m in self.module.named_modules()
+                if getattr(m, "rows_replicated", False)
+                for pn, _ in m.named_parameters(recurse=False)}
 
     @torch.no_grad()
-    def spike_rates(self, params: dict, frames_t: torch.Tensor) -> dict[str, float]:
+    def spike_rates(self, params: dict, frames_t: torch.Tensor, mesh=None) -> dict[str, float]:
         """Mean firing rate of every spiking block for one batch — the SNN
         activity/sparsity diagnostic (flat dict: 'backbone/stem1' -> rate).
-        One device-to-host copy for all blocks."""
+        One device-to-host copy for all blocks. With a spatial ``mesh``
+        every rank of the spatial group calls this with the whole frames,
+        runs its rows and gets the rates of the whole maps (spike and pixel
+        counts summed over the group)."""
         from .layers import SpikingConvBlock
 
         rates = {}
+        sharded = mesh is not None and mesh.spatial > 1
 
         def record(name):
             def hook(mod, inp, out):  # returns None: the output passes through
-                rates[name.replace(".", "/")] = out[0].float().mean()
+                s = out[0].float()
+                rates[name.replace(".", "/")] = (torch.stack([s.sum(), s.new_tensor(s.numel())])
+                                                 if sharded else s.mean())
             return hook
 
         hooks = [m.register_forward_hook(record(name))
                  for name, m in self.module.named_modules() if isinstance(m, SpikingConvBlock)]
         try:
-            self.apply(params, frames_t)
+            self.apply(params, spatial_rows(frames_t, mesh), mesh=mesh,
+                       height=frames_t.shape[-3])
         finally:
             for h in hooks:
                 h.remove()
-        return dict(zip(rates, torch.stack(list(rates.values())).tolist())) if rates else {}
+        if not rates:
+            return {}
+        values = torch.stack(list(rates.values()))
+        if sharded:
+            with spatial_parallel(mesh):
+                counts = spatial_sum(values)
+            values = counts[:, 0] / counts[:, 1]
+        return dict(zip(rates, values.tolist()))
 
     def decode(self, raw_maps, image_hw: tuple[int, int] | None = None):
         """Raw maps -> (boxes_xyxy pixels, class scores); pass the true

@@ -29,6 +29,17 @@ holds a shard all-gathers it in global channel order first
 global group count, local when the rank holds whole groups and with its
 per-channel sums gathered otherwise; everything per channel (the LIF, the
 affine, SiLU, the bias, the skip resize) runs on the shard.
+
+Spatial parallelism (training and evaluation, parallel/mesh.py part (d)):
+under ``spatial_parallel(mesh, height)`` every map holds this rank's rows
+``row_partition(n)`` of its n global rows, and each layer is told the
+global rows of its input (``rows=``): nothing is inferred from a local
+shape. A conv computes its SAME pads from the global height and fetches
+the input rows its output rows read, halo and zero rows included
+(:func:`conv2d_nhwc`); GroupNorm sums its statistics over the spatial
+group; the transposed conv and the skip resize fetch their source rows in
+global coordinates (:class:`UpBlock`). The normalize+LIF stage is per
+pixel and runs on the local rows as it is.
 """
 
 from __future__ import annotations
@@ -40,7 +51,14 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..parallel.mesh import all_gather_channels, current_tensor_group, full_channels
+from ..parallel.mesh import (
+    all_gather_channels,
+    current_spatial_group,
+    current_tensor_group,
+    fetch_rows,
+    full_channels,
+    spatial_sum,
+)
 from .lif import LIFParams, run_affine_lif_tb
 
 GN_EPS = 1e-6
@@ -88,12 +106,45 @@ def conv_name() -> str | None:
     return getattr(_conv_name, "value", None)
 
 
+def out_rows(rows: int | None, stride: int) -> int | None:
+    """Global rows of a SAME conv's output at ``stride`` (None passes)."""
+    return None if rows is None else -(-rows // stride)
+
+
+def _global_rows(rows: int | None, what: str) -> int:
+    if rows is None:
+        raise ValueError(f"{what} under spatial parallelism needs its input's global row count "
+                         "(rows=)")
+    return int(rows)
+
+
+def _empty_rows(x: torch.Tensor, shape) -> torch.Tensor:
+    """Zero rows of ``shape`` that still hang on ``x`` in the autograd
+    graph: a rank that owns no row of a map runs the same exchanges, in
+    the same order, in its backward as the others."""
+    return x.new_zeros(shape) + x.sum() * 0
+
+
+def _conv_input_rows(x: torch.Tensor, rows: int, k: int, stride: int, sg) -> torch.Tensor:
+    """The input rows (halo and zero pad rows included) that this rank's
+    output rows of a SAME conv read, the pads taken from the global
+    height."""
+    n_out, pad = -(-rows // stride), same_pads(rows, k, stride)[0]
+    lo, hi = [], []
+    for r in range(sg.size):
+        a, b = sg.part(n_out, r)
+        lo.append(a * stride - pad if b > a else 0)
+        hi.append((b - 1) * stride - pad + k if b > a else 0)
+    return fetch_rows(x, rows, lo, hi)
+
+
 def conv2d_nhwc(
     x: torch.Tensor,
     weight: torch.Tensor,
     stride: int = 1,
     f32_result: bool = False,
     name: str | None = None,
+    rows: int | None = None,
 ) -> torch.Tensor:
     """SAME-padded 2D conv of an NHWC tensor with an OIHW kernel, computed
     in x's dtype; returns an NHWC-contiguous tensor. With ``f32_result``
@@ -105,10 +156,23 @@ def conv2d_nhwc(
     accumulates in fp32. ``name`` marks the convolution for
     :func:`conv_name` while it is dispatched. An input holding a channel
     shard under tensor parallelism is gathered first
-    (parallel/mesh.py::full_channels)."""
+    (parallel/mesh.py::full_channels). Under spatial parallelism ``rows``
+    is the input's global row count: the rows the local output rows read
+    are fetched first, and the conv pads only the width."""
     x = full_channels(x, weight.shape[1])
     kh, kw = weight.shape[-2:]
-    ph, pw = same_pads(x.shape[1], kh, stride), same_pads(x.shape[2], kw, stride)
+    sg = current_spatial_group()
+    if sg is not None:
+        if kh > 1 or stride > 1:
+            x = _conv_input_rows(x, _global_rows(rows, "a conv"), kh, stride, sg)
+        if x.shape[1] == 0:
+            dtype = torch.float32 if f32_result else x.dtype
+            return _empty_rows(x, (x.shape[0], 0, -(-x.shape[2] // stride),
+                                   weight.shape[0])).to(dtype)
+        ph = (0, 0)
+    else:
+        ph = same_pads(x.shape[1], kh, stride)
+    pw = same_pads(x.shape[2], kw, stride)
     if ph[0] == ph[1] and pw[0] == pw[1]:
         padding = (ph[0], pw[0])
     else:
@@ -153,16 +217,38 @@ def gathered_group_moments(s1: torch.Tensor, s2: torch.Tensor, features: int,
     return mine[0], mine[1]
 
 
+def spatial_group_moments(s1: torch.Tensor, s2: torch.Tensor, groups: int,
+                          count: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-group (mean, mean of squares), (N, groups), of a row-sharded
+    map from this rank's per-channel sums ``s1`` / ``s2`` (N, C): the sums
+    are added over the spatial group in one all-reduce, then folded into
+    groups of ``count`` elements each (the same order of reductions as one
+    process: pixels first, then the channels of a group)."""
+    sums = spatial_sum(torch.stack([s1, s2]))
+    g = sums.view(2, s1.shape[0], groups, s1.shape[1] // groups).sum(3) / count
+    return g[0], g[1]
+
+
 def group_norm_nhwc(
     x: torch.Tensor, groups: int, scale: torch.Tensor, bias: torch.Tensor,
-    stats: torch.Tensor, features: int | None = None,
+    stats: torch.Tensor, features: int | None = None, rows: int | None = None,
 ) -> torch.Tensor:
     """flax ``nn.GroupNorm`` (eps 1e-6, one-pass variance) in fp32 on a
     (B, H, W, C) tensor. The group mean and variance come from ``stats``,
     a tensor of x's shape (``x`` itself, or its rounding to the compute
     dtype). Under tensor parallelism ``x`` may be a channel shard of a
-    ``features``-wide layer of ``groups`` groups (:func:`shard_groups`)."""
+    ``features``-wide layer of ``groups`` groups (:func:`shard_groups`);
+    under spatial parallelism it holds this rank's rows of ``rows`` global
+    rows, and the statistics are summed over the spatial group."""
     n, h, w, c = x.shape
+    if current_spatial_group() is not None:
+        sf = stats.float()
+        mean, mean2 = spatial_group_moments(sf.sum((1, 2)), sf.square().sum((1, 2)), groups,
+                                            _global_rows(rows, "GroupNorm") * w * (c // groups))
+        var = (mean2 - mean.square()).clamp(min=0.0)
+        mul = (torch.rsqrt(var + GN_EPS).repeat_interleave(c // groups, 1) * scale)
+        mean_c = mean.repeat_interleave(c // groups, 1)
+        return (x.float() - mean_c[:, None, None]) * mul[:, None, None] + bias
     features = features or c
     if c != features:
         local = shard_groups(features, c)
@@ -222,18 +308,27 @@ class SpikingConvBlock(nn.Module):
             t.zero_()
 
     def forward(self, x_t: torch.Tensor, v0: torch.Tensor | None = None,
-                with_readouts: bool = False):
+                with_readouts: bool = False, rows: int | None = None):
+        """``rows``: the global rows of ``x_t`` under spatial parallelism
+        (the output has ``out_rows(rows, stride)``)."""
         t, b = x_t.shape[:2]
         x = x_t.reshape((t * b,) + tuple(x_t.shape[2:])).to(self.dtype)
         # bf16: the group statistics read the conv's fp32 result, the LIF
         # stage its bf16 rounding (the jitted JAX block's optimized HLO)
-        xf = conv2d_nhwc(x, self.weight, self.stride, f32_result=True, name=CONV_OUT)
+        xf = conv2d_nhwc(x, self.weight, self.stride, f32_result=True, name=CONV_OUT, rows=rows)
         x = xf.to(self.dtype)
         c = xf.shape[-1]  # the layer's width, or 1/k of it under tensor parallelism
         groups = shard_groups(self.features, c)
         cg = self.features // _num_groups(self.features)
         n = x.shape[1] * x.shape[2] * cg
-        if groups is None:  # groups straddle the tensor-parallel shards
+        if current_spatial_group() is not None:  # rows sharded: sums over the group
+            mean, mean2 = spatial_group_moments(
+                xf.sum((1, 2)), xf.square().sum((1, 2)), groups,
+                out_rows(rows, self.stride) * x.shape[2] * cg)
+            var = (mean2 - mean.square()).clamp(min=0.0)
+            mean_c = mean.repeat_interleave(cg, 1).view(t, b, c)
+            rstd_c = torch.rsqrt(var + GN_EPS).repeat_interleave(cg, 1).view(t, b, c)
+        elif groups is None:  # groups straddle the tensor-parallel shards
             mean_c, mean2_c = gathered_group_moments(
                 xf.sum((1, 2)), xf.square().sum((1, 2)), self.features, n)
             var = (mean2_c - mean_c.square()).clamp(min=0.0)
@@ -266,10 +361,10 @@ class SpikingDownBlock(nn.Module):
         self.conv1 = SpikingConvBlock(in_ch, features, lif, stride=2, dtype=dtype)
         self.conv2 = SpikingConvBlock(features, features, lif, stride=1, dtype=dtype)
 
-    def forward(self, x_t: torch.Tensor, state: dict | None = None):
+    def forward(self, x_t: torch.Tensor, state: dict | None = None, rows: int | None = None):
         state = state or {}
-        s1, v1 = self.conv1(x_t, state.get("conv1"))
-        s2, v2 = self.conv2(s1, state.get("conv2"))
+        s1, v1 = self.conv1(x_t, state.get("conv1"), rows=rows)
+        s2, v2 = self.conv2(s1, state.get("conv2"), rows=out_rows(rows, 2))
         return s2, {"conv1": v1, "conv2": v2}
 
 
@@ -286,13 +381,14 @@ class ConvBlock(nn.Module):
 
     init_param = SpikingConvBlock.init_param
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, rows: int | None = None) -> torch.Tensor:
         # bf16: GroupNorm normalizes the conv's fp32 result with statistics
         # of its bf16 rounding (the jitted JAX block's optimized HLO)
         y = conv2d_nhwc(x.to(self.dtype), self.weight, self.stride, f32_result=True,
-                        name=CONV_OUT)
+                        name=CONV_OUT, rows=rows)
         x = group_norm_nhwc(y, _num_groups(self.features), self.gn_scale, self.gn_bias,
-                            stats=y.to(self.dtype), features=self.features)
+                            stats=y.to(self.dtype), features=self.features,
+                            rows=out_rows(rows, self.stride))
         return F.silu(x).to(self.dtype)
 
 
@@ -342,20 +438,93 @@ class UpBlock(nn.Module):
         else:
             t.zero_()
 
-    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, skip: torch.Tensor, rows: int | None = None,
+                skip_rows: int | None = None) -> torch.Tensor:
+        """``rows`` / ``skip_rows``: the global rows of ``x`` and ``skip``
+        under spatial parallelism (the output has ``2 * rows``)."""
         x = full_channels(x, self.up_weight.shape[0])
-        up = F.conv_transpose2d(
+        sg = current_spatial_group()
+        if sg is not None:
+            rows, skip_rows = _global_rows(rows, "UpBlock"), _global_rows(skip_rows, "UpBlock")
+            up = self._up_rows(x, rows, sg)
+            if (2 * rows, up.shape[2]) != (skip_rows, skip.shape[2]):
+                skip = _resize_rows(skip, skip_rows, 2 * rows, up.shape[2], sg)
+        else:
+            up = self._up(x)
+            if tuple(up.shape[1:3]) != tuple(skip.shape[1:3]):
+                skip = F.interpolate(
+                    skip.permute(0, 3, 1, 2), size=tuple(up.shape[1:3]),
+                    mode="bilinear", align_corners=False,
+                ).permute(0, 2, 3, 1)
+        # the skip resize is per channel, so it ran on the shard
+        x = torch.cat([full_channels(skip.to(self.dtype), self.skip_ch),
+                       full_channels(up, self.up_ch)], -1)
+        n = None if rows is None else 2 * rows
+        return self.conv2(self.conv1(x, rows=n), rows=n)
+
+    def _up(self, x: torch.Tensor) -> torch.Tensor:
+        return F.conv_transpose2d(
             x.to(self.dtype).permute(0, 3, 1, 2),
             self.up_weight.to(dtype=self.dtype, memory_format=torch.channels_last),
             None,
             stride=2,
         ).permute(0, 2, 3, 1) + self.up_bias.to(self.dtype)  # bias after rounding, as Conv1x1
-        if tuple(up.shape[1:3]) != tuple(skip.shape[1:3]):
-            skip = F.interpolate(
-                skip.permute(0, 3, 1, 2), size=tuple(up.shape[1:3]),
-                mode="bilinear", align_corners=False,
-            ).permute(0, 2, 3, 1)
-        # the skip resize is per channel, so it ran on the shard
-        x = torch.cat([full_channels(skip.to(self.dtype), self.skip_ch),
-                       full_channels(up, self.up_ch)], -1)
-        return self.conv2(self.conv1(x))
+
+    def _up_rows(self, x: torch.Tensor, rows: int, sg) -> torch.Tensor:
+        """This rank's rows of the 2x transposed conv's ``2 * rows`` global
+        output rows: output row i reads input row i // 2 alone, so the
+        input rows are fetched (no halo when the partitions nest) and the
+        output cropped to the local rows."""
+        parts = [sg.part(2 * rows, r) for r in range(sg.size)]
+        lo = [a // 2 if b > a else 0 for a, b in parts]
+        hi = [(b - 1) // 2 + 1 if b > a else 0 for a, b in parts]
+        src = fetch_rows(x, rows, lo, hi)
+        a, b = parts[sg.rank]
+        if b <= a:
+            return _empty_rows(src, (src.shape[0], 0, 2 * src.shape[2], self.up_ch)).to(self.dtype)
+        up = self._up(src)
+        return up[:, a - 2 * lo[sg.rank]: b - 2 * lo[sg.rank]]
+
+
+def _source_rows(n_in: int, n_out: int, lo: int, hi: int):
+    """PyTorch's bilinear source index of output rows ``[lo, hi)`` of a
+    resize from ``n_in`` to ``n_out`` rows (half-pixel centres,
+    ``align_corners=False``, in fp32 as ``upsample_bilinear2d`` computes
+    it): the first source rows, their next rows and the weights of the
+    next rows."""
+    scale = torch.tensor(float(n_in), dtype=torch.float32) / n_out
+    src = ((torch.arange(lo, hi, dtype=torch.float32) + 0.5) * scale - 0.5).clamp(min=0.0)
+    i0 = src.to(torch.int64)
+    i1 = torch.where(i0 < n_in - 1, i0 + 1, i0)
+    return i0, i1, src - i0.to(torch.float32)
+
+
+def _lerp_axis(x: torch.Tensor, dim: int, i0, i1, w1) -> torch.Tensor:
+    """Rows ``i0`` and ``i1`` of fp32 ``x`` along ``dim``, mixed with
+    weights ``1 - w1`` and ``w1``."""
+    shape = [1] * x.ndim
+    shape[dim] = -1
+    w1 = w1.to(x.device).view(shape)
+    return (x.index_select(dim, i0.to(x.device)) * (1.0 - w1)
+            + x.index_select(dim, i1.to(x.device)) * w1)
+
+
+def _resize_rows(skip: torch.Tensor, n_in: int, n_out: int, w_out: int, sg) -> torch.Tensor:
+    """This rank's rows of the bilinear resize of a row-sharded ``skip``
+    (``n_in`` global rows) to ``n_out`` x ``w_out``: the source rows of the
+    local output rows, taken in global coordinates, are fetched and mixed
+    (then the width, which is whole on every rank), in fp32, rounded once
+    to skip's dtype."""
+    lo, hi = [], []
+    for r in range(sg.size):
+        a, b = sg.part(n_out, r)
+        i0, i1, _ = _source_rows(n_in, n_out, a, b)
+        lo.append(int(i0.min()) if b > a else 0)
+        hi.append(int(i1.max()) + 1 if b > a else 0)
+    src = fetch_rows(skip, n_in, lo, hi).float()
+    a, b = sg.part(n_out)
+    i0, i1, w1 = _source_rows(n_in, n_out, a, b)
+    y = _lerp_axis(src, 1, i0 - lo[sg.rank], i1 - lo[sg.rank], w1)
+    if w_out != skip.shape[2]:
+        y = _lerp_axis(y, 2, *_source_rows(skip.shape[2], w_out, 0, w_out))
+    return y.to(skip.dtype)

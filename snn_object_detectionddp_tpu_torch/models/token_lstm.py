@@ -20,6 +20,13 @@ bias are permuted when sharded (parallel/mesh.py::tp_shard_leaf), so a
 rank computes i, f, g and o of its own slice of the hidden units; the
 input tokens and each new ``h`` are gathered whole for the next product,
 and the carry stays sharded.
+
+Under spatial parallelism the scan needs every token in order, so the map
+is gathered whole on every rank of the spatial group, scanned there, and
+each rank keeps its rows of the output (``gather_rows`` / ``shard_rows``):
+the one module computed the same on every rank. Its parameters' gradients
+are therefore whole on every rank and are not summed over the group
+(``rows_replicated``; train/step.py).
 """
 
 from __future__ import annotations
@@ -27,7 +34,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from ..parallel.mesh import full_channels
+from ..parallel.mesh import current_spatial_group, full_channels, gather_rows, shard_rows
 
 
 def _dot_f32(x: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -39,6 +46,8 @@ class TokenLSTM(nn.Module):
     """(T, B, H, W, C) -> (h_seq (T, B, H, W, C) in the compute dtype,
     carry): a ``num_layers``-layer LSTM scanned over the H*W tokens of each
     frame. The carry is (h, c), each (num_layers, B, hidden) fp32."""
+
+    rows_replicated = True  # every spatial rank runs it on the whole map
 
     def __init__(self, hidden: int, num_layers: int = 2,
                  dtype: torch.dtype = torch.bfloat16):
@@ -60,7 +69,14 @@ class TokenLSTM(nn.Module):
             t.zero_()
             t[self.hidden : 2 * self.hidden] = 1.0
 
-    def forward(self, x_t: torch.Tensor, state: tuple | None = None):
+    def forward(self, x_t: torch.Tensor, state: tuple | None = None, rows: int | None = None):
+        """``rows``: the global rows of ``x_t`` under spatial parallelism."""
+        if current_spatial_group() is not None:
+            h_seq, carry = self._scan(gather_rows(x_t, rows), state)
+            return shard_rows(h_seq, rows), carry
+        return self._scan(x_t, state)
+
+    def _scan(self, x_t: torch.Tensor, state: tuple | None):
         try:
             x_t = full_channels(x_t, self.hidden)  # a channel shard is gathered whole
         except ValueError:

@@ -10,6 +10,10 @@ By default the decoder runs once on the final timestep and reads each
 encoder block's continuous membrane readout. ``all_steps=True`` runs it
 on every timestep's per-step readouts folded to one (T*B) batch: per-step
 maps, same math as T chained single-step calls.
+
+Under spatial parallelism ``rows`` gives the global rows of p3; p4, p5
+and the encoder's maps have ``ceil`` halvings of it, the bottleneck
+``ceil(p5 / 2)``, and the decoder doubles that (:meth:`decoder_rows`).
 """
 
 from __future__ import annotations
@@ -19,7 +23,15 @@ from torch import nn
 
 from ..parallel.mesh import full_channels
 from .convlstm import ConvLSTM2d
-from .layers import ConvBlock, Conv1x1, SpikingConvBlock, SpikingDownBlock, UpBlock, membrane_readout
+from .layers import (
+    ConvBlock,
+    Conv1x1,
+    SpikingConvBlock,
+    SpikingDownBlock,
+    UpBlock,
+    membrane_readout,
+    out_rows,
+)
 from .lif import LIFParams
 from .token_lstm import TokenLSTM
 
@@ -58,32 +70,47 @@ class TemporalUNet(nn.Module):
         self.out_p4 = Conv1x1(c2, ch_p4, dtype=dtype)
         self.out_p5 = Conv1x1(c3, ch_p5, dtype=dtype)
 
+    @staticmethod
+    def decoder_rows(rows: int | None) -> tuple:
+        """Global rows of (p3, p4, p5, bottleneck, up1, up2, up3) for a p3
+        of ``rows`` rows (all None without rows)."""
+        if rows is None:
+            return (None,) * 7
+        r4 = out_rows(rows, 2)
+        r5 = out_rows(r4, 2)
+        r6 = out_rows(r5, 2)
+        return rows, r4, r5, r6, 2 * r6, 4 * r6, 8 * r6
+
     def forward(self, feats: tuple, state: dict | None = None, all_steps: bool = False,
-                state_only: bool = False):
+                state_only: bool = False, rows: int | None = None):
         """``state_only`` stops after the recurrent part (encoder and
         bottleneck) and returns (None, state): the decoder reads the state
-        but never writes it, so a chunk whose maps nobody needs skips it."""
+        but never writes it, so a chunk whose maps nobody needs skips it.
+        ``rows``: the global rows of p3 under spatial parallelism."""
         p3, p4, p5 = feats
         state = state or {}
         new_state: dict = {}
         t, b = p3.shape[:2]
+        r3, r4, r5, r6, ru1, ru2, _ = self.decoder_rows(rows)
 
-        x1, new_state["enc1"], *r1 = self.enc1(p3, state.get("enc1"), with_readouts=all_steps)
-        d1, new_state["down1"] = self.down1(x1, state.get("down1"))
-        x2, new_state["enc2"], *r2 = self.enc2(
-            self._concat(d1, "d1", p4, "p4"), state.get("enc2"), with_readouts=all_steps
+        x1, new_state["enc1"], *o1 = self.enc1(p3, state.get("enc1"), with_readouts=all_steps,
+                                               rows=r3)
+        d1, new_state["down1"] = self.down1(x1, state.get("down1"), rows=r3)
+        x2, new_state["enc2"], *o2 = self.enc2(
+            self._concat(d1, "d1", p4, "p4"), state.get("enc2"), with_readouts=all_steps, rows=r4
         )
-        d2, new_state["down2"] = self.down2(x2, state.get("down2"))
-        x3, new_state["enc3"], *r3 = self.enc3(
-            self._concat(d2, "d2", p5, "p5"), state.get("enc3"), with_readouts=all_steps
+        d2, new_state["down2"] = self.down2(x2, state.get("down2"), rows=r4)
+        x3, new_state["enc3"], *o3 = self.enc3(
+            self._concat(d2, "d2", p5, "p5"), state.get("enc3"), with_readouts=all_steps, rows=r5
         )
-        d3, new_state["down3"] = self.down3(x3, state.get("down3"))
+        d3, new_state["down3"] = self.down3(x3, state.get("down3"), rows=r5)
 
         if self.bottleneck_kind in ("convlstm", "lstm"):
-            bott_seq, new_state["bottleneck"] = self.bottleneck(d3, state.get("bottleneck"))
+            bott_seq, new_state["bottleneck"] = self.bottleneck(d3, state.get("bottleneck"),
+                                                                rows=r6)
         else:  # "lif": membrane potential is the recurrence
             spikes, v_final, *rb = self.bottleneck(
-                d3, state.get("bottleneck"), with_readouts=all_steps
+                d3, state.get("bottleneck"), with_readouts=all_steps, rows=r6
             )
             new_state["bottleneck"] = v_final
             bott_seq = None if all_steps else membrane_readout(spikes, v_final, self.lif)
@@ -95,18 +122,18 @@ class TemporalUNet(nn.Module):
                 bott = bott_seq.reshape((t * b,) + tuple(bott_seq.shape[2:]))
             else:
                 bott = rb[0]  # already (T*B, h, w, c4)
-            skip3, skip2, skip1 = (r3[0].to(self.dtype), r2[0].to(self.dtype),
-                                   r1[0].to(self.dtype))
+            skip3, skip2, skip1 = (o3[0].to(self.dtype), o2[0].to(self.dtype),
+                                   o1[0].to(self.dtype))
         else:
             bott = bott_seq if bott_seq.ndim == 4 else bott_seq[-1]
             skip3 = self._readout(x3, new_state["enc3"])
             skip2 = self._readout(x2, new_state["enc2"])
             skip1 = self._readout(x1, new_state["enc1"])
 
-        bott = self.bottleneck_conv(bott.to(self.dtype))
-        u1 = self.up1(bott, skip3)
-        u2 = self.up2(u1, skip2)
-        u3 = self.up3(u2, skip1)
+        bott = self.bottleneck_conv(bott.to(self.dtype), rows=r6)
+        u1 = self.up1(bott, skip3, rows=r6, skip_rows=r5)
+        u2 = self.up2(u1, skip2, rows=ru1, skip_rows=r4)
+        u3 = self.up3(u2, skip1, rows=ru2, skip_rows=r3)
         return (self.out_p3(u3), self.out_p4(u2), self.out_p5(u1)), new_state
 
     def _concat(self, a, a_name: str, b, b_name: str) -> torch.Tensor:

@@ -40,16 +40,27 @@ channel-sharded, and a conv all-gathers its input's shards in global
 channel order (:func:`all_gather_channels`, entered through
 :func:`tensor_parallel`).
 
-Spatial parallelism (part (d)) is not ported; the entry points raise on it.
+Part (d), spatial parallelism (``mesh.spatial``, training and evaluation):
+a 2-D ``data x spatial`` mesh, ranks ``rank = d * spatial + s``. Every
+activation keeps its own rows on each rank of a spatial group: a map of n
+global rows is split by :func:`row_partition`, whatever the scale. There
+is no partitioner; each layer asks for the rows it needs, explicitly
+(:func:`fetch_rows`: conv halos, stride-2 convs, the decoder's resizes and
+transposed convs), GroupNorm sums its statistics over the group
+(:func:`spatial_sum`), and the head's maps are gathered whole
+(:func:`gather_rows`). The layers read the group and the input's global
+height from :func:`spatial_parallel`. Serving stays ``1 x tensor``.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import os
 import re
 import threading
 from dataclasses import dataclass
+from typing import NamedTuple
 from datetime import timedelta
 
 import torch
@@ -65,13 +76,15 @@ def _backend(device: str | torch.device) -> str:
 
 
 def init_distributed(coordinator: str, num_processes: int, process_id: int,
-                     device: str | torch.device = "cuda") -> None:
+                     device: str | torch.device = "cuda", backend: str | None = None) -> None:
     """Join the process group through a ``tcp://`` rendezvous at
     ``coordinator`` (``host:port`` or ``tcp://host:port``). Backend NCCL on
-    the card; gloo when ``device`` is the CPU. On the card the caller sets
-    this process's CUDA device first (:func:`maybe_init_distributed` does)."""
+    the card; gloo when ``device`` is the CPU, or when ``backend`` says so
+    (several processes on one card, which NCCL refuses). On the card the
+    caller sets this process's CUDA device first
+    (:func:`maybe_init_distributed` does)."""
     init_method = coordinator if "://" in coordinator else f"tcp://{coordinator}"
-    dist.init_process_group(_backend(device), init_method=init_method,
+    dist.init_process_group(backend or _backend(device), init_method=init_method,
                             world_size=int(num_processes), rank=int(process_id),
                             timeout=RENDEZVOUS_TIMEOUT)
 
@@ -158,14 +171,9 @@ def _group_device() -> torch.device:
 
 
 def refuse_unported_axes(mesh_cfg, train: bool) -> None:
-    """Raise on the mesh axes the port does not run: spatial parallelism
-    (``NotImplementedError``), and a tensor axis in training
-    (``ValueError``: tensor parallelism is inference-only by design, as in
-    the JAX package). Every entry point calls this first."""
-    if mesh_cfg.spatial > 1:
-        raise NotImplementedError(
-            "mesh.spatial > 1 (image height split over devices) is not ported: "
-            "ROADMAP §1 item 3 (d), spatial parallelism")
+    """Raise on a tensor axis in training (``ValueError``: tensor
+    parallelism is inference-only by design, as in the JAX package). The
+    training entry points call this first."""
     if train and mesh_cfg.tensor > 1:
         raise ValueError(
             "mesh.tensor > 1 is inference-only (eval/serving latency); "
@@ -174,12 +182,13 @@ def refuse_unported_axes(mesh_cfg, train: bool) -> None:
 
 @dataclass(frozen=True)
 class DataMesh:
-    """A ``data x tensor`` process mesh. ``size``, ``rank`` and ``group``
-    are the data axis (the global batch tiles over it; ``group`` is None
-    for a single process without a group, where every collective is the
-    identity); ``tensor``, ``tensor_rank`` and ``tensor_group`` the tensor
-    axis (``tensor_group`` None when ``tensor`` is 1). Collectives run on
-    the device of the tensors given to them."""
+    """A ``data x tensor`` or ``data x spatial`` process mesh. ``size``,
+    ``rank`` and ``group`` are the data axis (the global batch tiles over
+    it; ``group`` is None for a single process without a group, where every
+    collective is the identity); ``tensor``, ``tensor_rank`` and
+    ``tensor_group`` the tensor axis, ``spatial``, ``spatial_rank`` and
+    ``spatial_group`` the spatial axis (a group is None when its axis is
+    1). Collectives run on the device of the tensors given to them."""
 
     size: int
     rank: int
@@ -187,45 +196,54 @@ class DataMesh:
     tensor: int = 1
     tensor_rank: int = 0
     tensor_group: object | None = None
+    spatial: int = 1
+    spatial_rank: int = 0
+    spatial_group: object | None = None
 
 
-def make_mesh(data: int = -1, tensor: int = 1) -> DataMesh:
-    """The ``data x tensor`` mesh over the whole process group, ranks laid
-    out ``rank = d * tensor + t``. ``data=-1`` (or 0) takes every process
-    the tensor axis leaves; any other value must make ``data * tensor`` the
-    world size: a mesh over part of the processes would leave the others
-    idle, and a mesh larger than the world raises, as the JAX
-    ``make_mesh`` does. Every process must call this with the same
-    arguments (each axis group is made by every rank)."""
+def make_mesh(data: int = -1, spatial: int = 1, tensor: int = 1) -> DataMesh:
+    """The ``data x spatial`` or ``data x tensor`` mesh over the whole
+    process group (the JAX ``make_mesh``'s order of arguments), ranks laid
+    out ``rank = d * k + j`` for the model axis of size k, so that a
+    spatial or tensor group is consecutive processes. The two model axes
+    cannot both exceed 1. ``data=-1`` (or 0) takes every process the model
+    axis leaves; any other value must make ``data * k`` the world size: a
+    mesh over part of the processes would leave the others idle, and a
+    mesh larger than the world raises, as the JAX ``make_mesh`` does. Every
+    process must call this with the same arguments (each axis group is
+    made by every rank)."""
     n, rank = _world()
-    data, tensor = int(data), int(tensor)
-    if tensor < 1 or n % tensor:
-        raise ValueError(f"mesh.tensor={tensor} must divide the world size of {n} process(es)")
+    data, spatial, tensor = int(data), int(spatial), int(tensor)
+    if spatial > 1 and tensor > 1:
+        raise ValueError("mesh.spatial and mesh.tensor cannot both exceed 1")
+    axis, k = ("spatial", spatial) if spatial > 1 else ("tensor", tensor)
+    if k < 1 or n % k:
+        raise ValueError(f"mesh.{axis}={k} must divide the world size of {n} process(es)")
     if data in (-1, 0):
-        data = n // tensor
-    if data * tensor > n:
-        raise ValueError(f"mesh.data={data} x mesh.tensor={tensor} exceeds the world size of {n} "
-                         f"process(es): launch {data * tensor} processes (torchrun "
-                         f"--nproc_per_node {data * tensor}) or set mesh.data: -1")
-    if data * tensor != n:
-        raise ValueError(f"mesh.data={data} x mesh.tensor={tensor} must equal the world size "
+        data = n // k
+    if data * k > n:
+        raise ValueError(f"mesh.data={data} x mesh.{axis}={k} exceeds the world size of {n} "
+                         f"process(es): launch {data * k} processes (torchrun "
+                         f"--nproc_per_node {data * k}) or set mesh.data: -1")
+    if data * k != n:
+        raise ValueError(f"mesh.data={data} x mesh.{axis}={k} must equal the world size "
                          f"({n}): the mesh spans the whole process group")
     if not dist.is_initialized():
         return DataMesh(size=1, rank=0, group=None)
-    if tensor == 1:
+    if k == 1:
         return DataMesh(size=n, rank=rank, group=dist.group.WORLD)
-    d, t = divmod(rank, tensor)
-    data_group = tensor_group = None
-    for j in range(tensor):  # every rank makes every group, in one order
-        g = dist.new_group([i * tensor + j for i in range(data)])
-        if j == t:
+    d, j = divmod(rank, k)
+    data_group = model_group = None
+    for col in range(k):  # every rank makes every group, in one order
+        g = dist.new_group([i * k + col for i in range(data)])
+        if col == j:
             data_group = g
     for i in range(data):
-        g = dist.new_group([i * tensor + j for j in range(tensor)])
+        g = dist.new_group([i * k + col for col in range(k)])
         if i == d:
-            tensor_group = g
-    return DataMesh(size=data, rank=d, group=data_group, tensor=tensor, tensor_rank=t,
-                    tensor_group=tensor_group)
+            model_group = g
+    return DataMesh(size=data, rank=d, group=data_group,
+                    **{axis: k, f"{axis}_rank": j, f"{axis}_group": model_group})
 
 
 def local_batch_size(global_batch_size: int, num_processes: int | None = None) -> int:
@@ -626,3 +644,289 @@ def full_channels(x: torch.Tensor, channels: int) -> torch.Tensor:
         raise ValueError(f"a tensor of {c} channels where {channels} are expected"
                          + ("" if tg is None else f" (or 1/{tg.size} of them)"))
     return all_gather_channels(x, tg)
+
+
+# ---------------------------------------------------------------------------
+# (d) Spatial parallelism: image rows sharded over the spatial axis
+# ---------------------------------------------------------------------------
+
+
+def row_partition(n_rows: int, spatial: int, rank: int) -> tuple[int, int]:
+    """The global rows ``[lo, hi)`` that spatial rank ``rank`` of
+    ``spatial`` keeps of a map of ``n_rows`` rows: GSPMD's ceil blocks,
+    ``ceil(n_rows / spatial)`` rows a rank, the last ranks short or empty.
+    Every map is split by this rule from its own global height, at every
+    scale, so a rank may own zero rows of a small map (one row of the
+    stride-64 map over two ranks)."""
+    block = -(-int(n_rows) // int(spatial))
+    return min(rank * block, n_rows), min((rank + 1) * block, n_rows)
+
+
+@dataclass(frozen=True)
+class _SpatialGroup:
+    size: int
+    rank: int
+    group: object
+    height: int | None  # the global rows of the model's input frames
+
+    def part(self, n: int, rank: int | None = None) -> tuple[int, int]:
+        return row_partition(n, self.size, self.rank if rank is None else rank)
+
+
+_sp = threading.local()
+
+
+def current_spatial_group() -> _SpatialGroup | None:
+    """The spatial group this thread's forward shards rows over, None
+    outside :func:`spatial_parallel`."""
+    return getattr(_sp, "group", None)
+
+
+@contextlib.contextmanager
+def spatial_parallel(mesh: DataMesh | None, height: int | None = None):
+    """Run the model's layers row-sharded over ``mesh``'s spatial axis in
+    this thread (a no-op without a spatial axis). ``height`` is the global
+    row count of the input frames, whose rows ``row_partition(height)``
+    this rank holds; the layers derive every other map's global height
+    from it. Entered inside a checkpoint region, so the recompute of the
+    backward (on the autograd engine's thread) runs sharded as well."""
+    prev = current_spatial_group()
+    _sp.group = (None if mesh is None or mesh.spatial == 1
+                 else _SpatialGroup(mesh.spatial, mesh.spatial_rank, mesh.spatial_group,
+                                    None if height is None else int(height)))
+    try:
+        yield
+    finally:
+        _sp.group = prev
+
+
+def spatial_rows(x: torch.Tensor, mesh: DataMesh | None) -> torch.Tensor:
+    """This rank's rows (``row_partition`` of axis -3) of a whole tensor
+    that every rank of the spatial group holds (an input batch): a slice,
+    for inputs that need no gradient. ``x`` itself without a spatial
+    axis."""
+    if mesh is None or mesh.spatial == 1:
+        return x
+    lo, hi = row_partition(x.shape[-3], mesh.spatial, mesh.spatial_rank)
+    return x.narrow(-3, lo, hi - lo)
+
+
+class _Plan(NamedTuple):
+    """What one rank of an exchange sends and receives. Rank ``r`` asks for
+    the global rows ``want[r]``; ``send[j]`` are the local rows ``[a, b)``
+    this rank sends rank j, ``recv[j]`` the count it receives from rank j
+    (0 for itself); ``own`` its own local rows that it keeps;
+    ``before`` / ``after`` the zero rows above 0 and below n it asks for."""
+
+    send: tuple
+    recv: tuple
+    own: tuple
+    before: int
+    after: int
+    exchange: bool  # does any rank receive a row from another?
+
+
+def _plan_for(sg: _SpatialGroup, n: int, want: tuple | None = None) -> _Plan:
+    """The plan of this rank of ``sg`` when each rank asks for ``want``
+    (default: the whole map, every rank)."""
+    return _plan(sg.size, sg.rank, n, want or ((0, n),) * sg.size)
+
+
+@functools.lru_cache(maxsize=1024)  # a model asks for the same few plans at every call
+def _plan(size: int, me: int, n: int, want: tuple) -> _Plan:
+    parts = [row_partition(n, size, r) for r in range(size)]
+
+    def overlap(r, j):  # global rows of rank r's that rank j asks for
+        (p, q), (lo, hi) = parts[r], want[j]
+        a, b = max(lo, p), min(hi, q)
+        return (a, b) if b > a else (p, p)
+
+    p = parts[me][0]
+    send = tuple((a - p, b - p) if j != me else (0, 0)
+                 for j in range(size) for a, b in [overlap(me, j)])
+    recv = tuple(0 if r == me else overlap(r, me)[1] - overlap(r, me)[0] for r in range(size))
+    a, b = overlap(me, me)
+    lo, hi = want[me]
+    total = max(hi - lo, 0)
+    inside = max(0, min(hi, n) - max(lo, 0))
+    before = min(max(0, -lo), total)
+    exchange = any(overlap(r, j)[1] > overlap(r, j)[0]
+                   for r in range(size) for j in range(size) if r != j)
+    return _Plan(send, recv, (a - p, b - p), before, total - before - inside, exchange)
+
+
+def _rows_first(x: torch.Tensor, a: int, b: int) -> torch.Tensor:
+    return x[..., a:b, :, :].movedim(-3, 0)
+
+
+def _alltoall(chunks: list, counts_in: list, counts_out: list, like: torch.Tensor,
+              group) -> torch.Tensor:
+    """One ``all_to_all_single`` of row chunks (rows first): ``chunks[j]``
+    (``counts_in[j]`` rows) goes to rank j; returns the rows received,
+    ``counts_out[j]`` of them from rank j, in rank order."""
+    rest = tuple(like.shape[1:])
+    inp = (torch.cat([c for c in chunks if c.shape[0]], 0) if any(counts_in)
+           else like.new_empty((0,) + rest))
+    out = like.new_empty((sum(counts_out),) + rest)
+    dist.all_to_all_single(out, inp.contiguous(), list(counts_out), list(counts_in), group=group)
+    return out
+
+
+def _fetch(x: torch.Tensor, sg: _SpatialGroup, plan: _Plan) -> torch.Tensor:
+    """The rows ``plan`` asks for, from the ranks that own them, between
+    the zero rows it asks for above and below the map."""
+    a, b = plan.own
+    parts = [x[..., a:b, :, :]]
+    if plan.exchange:
+        like = _rows_first(x, 0, 0)
+        got = _alltoall([_rows_first(x, s0, s1) for s0, s1 in plan.send],
+                        [s1 - s0 for s0, s1 in plan.send], plan.recv, like, sg.group)
+        above = sum(plan.recv[: sg.rank])
+        parts = [got[:above].movedim(0, -3), parts[0], got[above:].movedim(0, -3)]
+    shape = list(x.shape)
+    if plan.before:
+        shape[-3] = plan.before
+        parts.insert(0, x.new_zeros(shape))
+    if plan.after:
+        shape[-3] = plan.after
+        parts.append(x.new_zeros(shape))
+    return torch.cat(parts, -3) if len(parts) > 1 else parts[0].contiguous()
+
+
+def _return_rows(g: torch.Tensor, x_shape, sg: _SpatialGroup, plan: _Plan) -> torch.Tensor:
+    """The backward of :func:`_fetch`: each fetched row's gradient sent
+    back to the rank that owns the row and added there."""
+    g = g.narrow(-3, plan.before, g.shape[-3] - plan.before - plan.after)
+    above = sum(plan.recv[: sg.rank])
+    a, b = plan.own
+    grad = g.new_zeros(x_shape)
+    grad[..., a:b, :, :] += g.narrow(-3, above, b - a)
+    if plan.exchange:
+        below = sum(plan.recv[sg.rank + 1:])
+        mine = g.narrow(-3, above + b - a, below)
+        rows = torch.cat([g.narrow(-3, 0, above).movedim(-3, 0), mine.movedim(-3, 0)], 0)
+        counts = list(plan.recv)
+        chunks = list(torch.split(rows, [c for c in counts], 0))
+        back = _alltoall(chunks, counts, [s1 - s0 for s0, s1 in plan.send],
+                         _rows_first(g, 0, 0), sg.group)
+        off = 0
+        for s0, s1 in plan.send:
+            if s1 > s0:
+                grad[..., s0:s1, :, :] += back[off: off + s1 - s0].movedim(0, -3)
+                off += s1 - s0
+    return grad
+
+
+class _FetchRows(torch.autograd.Function):
+    # Every exchange saves a tensor and reads it first in its backward: a
+    # checkpoint region then recomputes (and exchanges) before any of its
+    # backward exchanges on every rank, whatever else each rank saved.
+    @staticmethod
+    def forward(ctx, x, sg, plan):
+        ctx.sg, ctx.plan, ctx.x_shape = sg, plan, x.shape
+        ctx.save_for_backward(x.new_empty(0))
+        return _fetch(x, sg, plan)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        ctx.saved_tensors
+        return _return_rows(g.contiguous(), ctx.x_shape, ctx.sg, ctx.plan), None, None
+
+
+def fetch_rows(x_local: torch.Tensor, n_global: int, lo, hi) -> torch.Tensor:
+    """Global rows ``[lo[r], hi[r])`` of a row-sharded map of ``n_global``
+    rows (axis -3) on spatial rank r: its own rows plus the ones the other
+    ranks send; rows outside ``[0, n_global)`` are zeros. ``lo`` and ``hi``
+    give every rank's request (the same sequences on every rank), so no
+    request is exchanged; when every rank asks only for rows it owns, no
+    rank communicates. Every rank of the group calls this together. The
+    backward sends each fetched row's gradient back to its owner, which
+    adds it."""
+    sg = current_spatial_group()
+    want = tuple(zip((int(v) for v in lo), (int(v) for v in hi)))
+    return _FetchRows.apply(x_local, sg, _plan_for(sg, int(n_global), want))
+
+
+class _GatherRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, sg, n):
+        ctx.sg, ctx.n = sg, n
+        ctx.save_for_backward(x.new_empty(0))
+        return _fetch(x, sg, _plan_for(sg, n))
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.saved_tensors
+        lo, hi = ctx.sg.part(ctx.n)
+        return g[..., lo:hi, :, :].contiguous(), None, None
+
+
+def gather_rows(x_local: torch.Tensor, n_global: int) -> torch.Tensor:
+    """The whole map (axis -3) on every rank of the spatial group. What
+    follows a gather is computed the same on every rank, so its backward
+    keeps this rank's rows of the incoming gradient (a slice, no sum)."""
+    return _GatherRows.apply(x_local, current_spatial_group(), int(n_global))
+
+
+class _ShardRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, sg, n):
+        ctx.sg, ctx.n = sg, n
+        ctx.save_for_backward(x.new_empty(0))
+        lo, hi = sg.part(n)
+        return x[..., lo:hi, :, :].contiguous()
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.saved_tensors
+        sg, n = ctx.sg, ctx.n
+        return _fetch(g.contiguous(), sg, _plan_for(sg, n)), None, None
+
+
+def shard_rows(x_whole: torch.Tensor, n_global: int) -> torch.Tensor:
+    """This rank's rows of a map that every rank of the spatial group
+    computed whole (the token LSTM's output): the dual of
+    :func:`gather_rows`. Its backward gathers the gradient's rows from
+    every rank, so the whole computation before it gets the whole
+    gradient on every rank."""
+    return _ShardRows.apply(x_whole, current_spatial_group(), int(n_global))
+
+
+class _SpatialSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        ctx.save_for_backward(x.new_empty(0))
+        out = x.detach().clone().contiguous()
+        dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        ctx.saved_tensors
+        g = g.clone().contiguous()
+        dist.all_reduce(g, op=dist.ReduceOp.SUM, group=ctx.group)
+        return g, None
+
+
+def spatial_sum(x: torch.Tensor) -> torch.Tensor:
+    """``x`` summed over the spatial group (GroupNorm's per-channel sums,
+    the spike-rate counts); its backward sums the gradient likewise, since
+    every rank's rows read the sum. ``x`` itself outside
+    :func:`spatial_parallel`."""
+    sg = current_spatial_group()
+    return x if sg is None else _SpatialSum.apply(x, sg.group)
+
+
+@torch.no_grad()
+def all_reduce_spatial(grads: dict, mesh: DataMesh | None, skip=()) -> dict:
+    """Sum the fp32 ``{name: gradient}`` over the spatial group, all but
+    the names in ``skip`` (the parameters every rank used the same way on
+    whole maps), in one flat all-reduce; returns a new dict."""
+    if mesh is None or mesh.spatial == 1:
+        return grads
+    names = [k for k in grads if k not in skip]
+    summed = all_reduce_grads({k: grads[k] for k in names},
+                              DataMesh(mesh.spatial, mesh.spatial_rank, mesh.spatial_group))
+    return {k: summed.get(k, g) for k, g in grads.items()}

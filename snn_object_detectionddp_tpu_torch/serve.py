@@ -28,7 +28,9 @@
   which stream's stored state each slot reads, which streams keep the
   results, which streams are still live) and every rank runs the same
   step in lockstep. The other ranks loop in :meth:`DetectionService.follow`
-  until rank 0 stops.
+  until rank 0 stops. A data or spatial axis raises ``ValueError``:
+  serving runs on one device or a ``1 x tensor`` mesh, as the JAX
+  package's does.
 
 Endpoints (JSON):
   POST /detect  {"stream": "cam0", "image": <base64 png/jpg>}
@@ -69,7 +71,6 @@ from .parallel.mesh import (
     make_mesh,
     maybe_init_distributed,
     process_device,
-    refuse_unported_axes,
     tp_shard_params,
 )
 
@@ -98,6 +99,11 @@ class _Job:
     cancelled: threading.Event = field(default_factory=threading.Event)
 
 
+# Serving runs on one device or a 1 x tensor mesh, as the JAX package's does.
+_SERVE_MESH = ("serve mesh must be a 1 x tensor latency mesh (parallel.mesh.make_mesh(1, "
+               "tensor=k)); mesh.data and mesh.spatial are training and evaluation axes")
+
+
 class DetectionService:
     """Device worker + per-stream state registry (transport-agnostic).
     Runs on ``detector.device``.
@@ -111,9 +117,8 @@ class DetectionService:
                  max_det: int = 100, max_streams: int = 64,
                  max_batch: int = 8, reply_timeout_s: float = 120.0,
                  max_clip: int = 8, mesh=None):
-        if mesh is not None and mesh.size != 1:
-            raise ValueError("serve mesh must be a 1 x tensor latency mesh "
-                             "(parallel.mesh.make_mesh(1, tensor=k))")
+        if mesh is not None and (mesh.size != 1 or mesh.spatial != 1):
+            raise ValueError(_SERVE_MESH)
         self.detector = detector
         self.device = detector.device
         self.mesh = mesh if mesh is not None and mesh.tensor > 1 else None
@@ -640,7 +645,8 @@ def serve(cfg, weights: str | None, port: int = 8000, max_batch: int = 8,
     back to one device."""
     from .models.detector import Detector
 
-    refuse_unported_axes(cfg.mesh, train=False)
+    if cfg.mesh.spatial > 1:
+        raise ValueError(_SERVE_MESH)
     mesh = None
     if cfg.mesh.tensor > 1:
         if not torch.distributed.is_initialized():

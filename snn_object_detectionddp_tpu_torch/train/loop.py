@@ -18,6 +18,10 @@ so after each epoch's train steps every process joins one gather
 best-state snapshot and the checkpoint writes read that whole state: rank
 0 writes the same file format as an unsharded run.
 
+Spatial runs (a ``data x spatial`` mesh): the ranks of a spatial group see
+the same batches and compute the same metrics; the spike-rate pass runs on
+every rank of data row 0 (each on its rows), and rank 0 writes the rates.
+
 A loader is any sized iterable of batch dicts: ``images`` (B, T, H, W, 3)
 uint8, ``labels`` (B, M, 5), ``label_mask`` (B, M), optionally
 ``sample_mask`` (B,); numpy arrays or tensors.
@@ -141,12 +145,15 @@ def train_loop(
                      schedule(state["step"]))
 
         # SNN observability: per-layer firing rates on one val batch,
-        # reusing the batch validation already fetched. Rank 0 only: the
-        # pass runs the forward alone, no collective.
-        if main and detector is not None and first_val_batch is not None:
+        # reusing the batch validation already fetched. Data rank 0 only
+        # (rank 0, or its spatial group, whose ranks run their rows
+        # together); rank 0's writer keeps them.
+        mesh = fns.mesh
+        if ((mesh is None or mesh.rank == 0) and detector is not None
+                and first_val_batch is not None):
             images = torch.as_tensor(first_val_batch["images"]).to(detector.device)
             frames = preprocess_video(images, dtype=detector.dtype)
-            for name, rate in detector.spike_rates(whole["params"], frames).items():
+            for name, rate in detector.spike_rates(whole["params"], frames, mesh=mesh).items():
                 writer.add_scalar(f"SpikeRates/{name}", rate, epoch)
 
         # val_loss is the global loss, the same on every process: every

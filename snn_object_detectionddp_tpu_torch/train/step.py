@@ -12,7 +12,12 @@ every process takes the step one device would take on the concatenated
 batch (the JAX package's shard_map branch). With ``fsdp`` the parameters
 and moments are sharded over the processes (parallel/mesh.py, part (c)):
 the step gathers the full parameters once, reduce-scatters the summed
-gradients and updates only the local chunks.
+gradients and updates only the local chunks. With a spatial axis (part
+(d)) each rank of a spatial group runs its rows of the same images and
+gets the whole raw maps, so every rank computes the same loss; the
+gradients of the parameters used on local rows are summed over the
+spatial group first (those of the token LSTM, used the same way on whole
+maps by every rank, are whole already), then over the data axis as above.
 
 The train state is a plain dict::
 
@@ -35,6 +40,7 @@ multiplies it.
 
 from __future__ import annotations
 
+import contextlib
 from functools import partial
 from typing import Callable, NamedTuple
 
@@ -44,6 +50,7 @@ from torch.utils.checkpoint import (
     checkpoint,
     create_selective_checkpoint_contexts,
     noop_context_fn,
+    set_checkpoint_early_stop,
 )
 
 from ..data.encoding import preprocess_video
@@ -52,6 +59,7 @@ from ..models.layers import CONV_OUT, conv_name
 from ..parallel.mesh import (
     DataMesh,
     all_reduce_grads,
+    all_reduce_spatial,
     gather_params,
     gather_state,
     reduce_scatter_grads,
@@ -59,6 +67,7 @@ from ..parallel.mesh import (
     shard_layout,
     shard_state,
     sharded_norm,
+    spatial_rows,
 )
 from .schedule import onecycle_lr
 
@@ -221,6 +230,7 @@ class TrainStepFns(NamedTuple):
     # rank together); the identity without FSDP.
     shard_state: Callable = _identity
     gather_state: Callable = _identity
+    mesh: DataMesh | None = None  # the mesh the step functions run on
 
 
 def make_step_fns(
@@ -267,7 +277,12 @@ def make_step_fns(
     process splits its local batch into microbatches, and microbatch ``i``
     is normalised over the ``i``-th microbatches of all processes together.
     A mesh with a tensor axis raises ``ValueError``: tensor parallelism is
-    inference-only.
+    inference-only. On a ``data x spatial`` mesh the ranks of a spatial
+    group feed the same local batch; each keeps its rows of the images,
+    the labels stay whole, and ``remat``, ``remat_chunk``, ``grad_accum``,
+    ``remat_policy`` and ``fsdp`` compose (FSDP shards over the data axis;
+    the spatial sum of the gradients comes before its reduce-scatter).
+    Every geometry runs, ranks with no row of a small map included.
 
     ``fsdp``: shard the parameters and AdamW moments over the mesh's data
     axis (ZeRO, parallel/mesh.py part (c)); needs ``mesh``. ``train_step``
@@ -301,12 +316,22 @@ def make_step_fns(
     # compute dtype, so "f32" never quantizes inputs through bf16.
     in_dtype = detector.dtype
 
+    spatial = mesh is not None and mesh.spatial > 1
+
     def _ckpt(fn, *args):
-        return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
+        # Spatial: a recompute runs the region's exchanges, so it runs the
+        # whole region on every rank (early stop would end it wherever the
+        # rank's last saved tensor falls).
+        with set_checkpoint_early_stop(False) if spatial else contextlib.nullcontext():
+            return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn)
+
+    def run(params, frames, height, state=None, state_only=False):
+        return detector.apply_train(params, frames, state, state_only=state_only, mesh=mesh,
+                                    height=height)
 
     if remat_chunk:
 
-        def maps_of(params, frames):
+        def maps_of(params, frames, height):
             t, c = frames.shape[0], remat_chunk
             if t % c:
                 raise ValueError(f"T={t} not a multiple of remat_chunk={c}")
@@ -314,24 +339,24 @@ def make_step_fns(
             state = None
             for i in range(n - 1):  # all but the last chunk only advance the state
                 state = _ckpt(
-                    lambda chunk, st: detector.apply_train(params, chunk, st, state_only=True)[1],
+                    lambda chunk, st: run(params, chunk, height, st, state_only=True)[1],
                     frames[i * c : (i + 1) * c], state,
                 )
             # Final chunk: maps of its last timestep are the window's output.
             return _ckpt(
-                lambda chunk, st: detector.apply_train(params, chunk, st)[0],
+                lambda chunk, st: run(params, chunk, height, st)[0],
                 frames[(n - 1) * c :], state,
             )
 
     elif remat:
 
-        def maps_of(params, frames):
-            return _ckpt(lambda fr: detector.apply_train(params, fr)[0], frames)
+        def maps_of(params, frames, height):
+            return _ckpt(lambda fr: run(params, fr, height)[0], frames)
 
     else:
 
-        def maps_of(params, frames):
-            return detector.apply_train(params, frames)[0]
+        def maps_of(params, frames, height):
+            return run(params, frames, height)[0]
 
     def _to_device(batch: dict) -> dict:
         return {
@@ -340,9 +365,10 @@ def make_step_fns(
         }
 
     def _loss(params, batch) -> LossComponents:
-        frames = preprocess_video(batch["images"], dtype=in_dtype)
+        images = batch["images"]  # (B, T, H, W, 3): a spatial rank keeps its rows
+        frames = preprocess_video(spatial_rows(images, mesh), dtype=in_dtype)
         return loss_fn(
-            maps_of(params, frames), batch["labels"], batch["label_mask"],
+            maps_of(params, frames, images.shape[2]), batch["labels"], batch["label_mask"],
             sample_mask=batch.get("sample_mask"), cross_replica_axis=mesh,
         )
 
@@ -361,6 +387,10 @@ def make_step_fns(
 
     layout = (shard_layout(dict(detector.module.named_parameters()), mesh.size)
               if fsdp else None)
+    whole_on_every_rank = detector.rows_replicated_params()
+
+    def _reduce_spatial(grads):
+        return all_reduce_spatial(grads, mesh, skip=whole_on_every_rank)
 
     def train_step(state: dict, batch: dict):
         batch = _to_device(batch)
@@ -387,6 +417,7 @@ def make_step_fns(
         else:
             grads, lc = _grads_of(full, batch)
         del full
+        grads = _reduce_spatial(grads)
         sched = state["sched"]
         lr = onecycle_lr(state["step"], *sched)
         # Each process holds d(global loss)/d(params) over its own batch:
@@ -417,17 +448,21 @@ def make_step_fns(
         return {"loss": lc.total, "box": lc.box, "cls": lc.cls, "dfl": lc.dfl, "fg": lc.fg}
 
     def forward(params: dict, frames_t, rec_state=None):
-        return detector.apply(params, frames_t, rec_state)
+        """Whole frames in, whole raw maps out; on a spatial mesh the
+        recurrent state holds this rank's rows."""
+        return detector.apply(params, spatial_rows(frames_t, mesh), rec_state, mesh=mesh,
+                              height=frames_t.shape[-3])
 
     def grads(params: dict, batch: dict):
         g, lc = _grads_of(params, _to_device(batch))
-        return all_reduce_grads(g, mesh), lc
+        return all_reduce_grads(_reduce_spatial(g), mesh), lc
 
     if not fsdp:
         return TrainStepFns(train_step=train_step, eval_step=eval_step, forward=forward,
-                            grads=grads)
+                            grads=grads, mesh=mesh)
     return TrainStepFns(
         train_step=train_step, eval_step=eval_step, forward=forward, grads=grads,
         shard_state=lambda state: shard_state(state, layout, mesh.rank),
         gather_state=lambda state: gather_state(state, layout, mesh),
+        mesh=mesh,
     )

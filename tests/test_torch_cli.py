@@ -209,16 +209,17 @@ def _set(path, value):
     return apply
 
 
-# What stays unported raises, naming its ROADMAP item. mesh.data is ported:
-# on a one-process run, a data axis of 2 exceeds the world and raises
-# ValueError naming the world size. A tensor axis is inference-only, so
-# training with one raises ValueError. The test runs without OpenCV, as a
+# What stays unported raises, naming its ROADMAP item. mesh.data and
+# mesh.spatial are ported: on a one-process run, a data or spatial axis of
+# 2 does not fit the world and raises ValueError naming the world size (a
+# spatial mesh over gloo processes: tests/test_torch_spatial.py). A tensor
+# axis is inference-only, so training with one raises ValueError. The test runs without OpenCV, as a
 # GPU host may: visualize raises naming cv2.putText before it reads
 # best.pt. debug_nans with a NaN learning rate raises at the first update.
 UNPORTED = {
     "mesh_tensor": (_set("mesh.tensor", 2), ValueError, "inference-only"),
     "mesh_data": (_set("mesh.data", 2), ValueError, "world size of 1"),
-    "mesh_spatial": (_set("mesh.spatial", 2), NotImplementedError, r"item 3 \(d\), spatial"),
+    "mesh_spatial": (_set("mesh.spatial", 2), ValueError, "world size of 1"),
     "debug_nans": (lambda cfg: (_set("runtime.debug_nans", True)(cfg),
                                 _set("training.learning_rate", math.nan)(cfg)),
                    FloatingPointError, r"NaN in the output of aten\."),
@@ -240,9 +241,10 @@ def test_unported_branches_raise(tree, tmp_path, case, monkeypatch):
 
 def test_evaluation_on_several_devices_raises(tree, tmp_path):
     """Evaluation takes a data mesh (two processes:
-    tests/test_torch_parallel.py) and a tensor axis (four processes:
-    tests/test_torch_tensor_parallel.py); a data or tensor axis larger than
-    the world and a spatial axis raise."""
+    tests/test_torch_parallel.py), a tensor axis (four processes:
+    tests/test_torch_tensor_parallel.py) and a spatial axis (four
+    processes: tests/test_torch_spatial.py); a data, spatial or tensor axis
+    that the world cannot hold raises."""
     cfg = _tiny(tconfig, tree, tmp_path / "run")
     det = Detector.from_config(cfg, device="cpu")
     params = det.init_params(torch.Generator().manual_seed(0))
@@ -252,7 +254,7 @@ def test_evaluation_on_several_devices_raises(tree, tmp_path):
     with pytest.raises(ValueError, match="world size of 1"):
         eval_2.evaluate(cfg, device="cpu")
     cfg.mesh.data, cfg.mesh.spatial = -1, 2
-    with pytest.raises(NotImplementedError, match=r"item 3 \(d\), spatial"):
+    with pytest.raises(ValueError, match=r"mesh.spatial=2 must divide the world size of 1"):
         eval_2.evaluate(cfg, device="cpu")
     cfg.mesh.spatial, cfg.mesh.tensor = 1, 2
     with pytest.raises(ValueError, match=r"mesh.tensor=2 must divide the world size of 1"):

@@ -269,6 +269,60 @@ def test_run_lif_takes_the_card_for_a_cuda_tensor_and_never_the_plain_version():
     assert set(kernels_lif.KERNELS) == {"lif_scan_fwd", "lif_scan_fwd_res", "lif_scan_bwd"}
 
 
+# Spatial parallelism's row exchanges (parallel/mesh.py part (d)): a
+# function or class of these names moves no tensor through the host.
+SPATIAL_HELPERS = ("row_partition", "spatial_rows", "_fetch", "_return_rows", "_alltoall",
+                   "_FetchRows", "fetch_rows", "_GatherRows", "gather_rows", "_ShardRows",
+                   "shard_rows", "_SpatialSum", "spatial_sum", "all_reduce_spatial")
+
+
+def test_spatial_helpers_keep_tensors_on_their_device():
+    """The exchanges of spatial parallelism run on the device of the
+    tensors given to them (NCCL on the card): no copy to the host, no
+    host read of a value, no CPU device named."""
+    tree = ast.parse((PORT / "parallel" / "mesh.py").read_text())
+    defs = {n.name: n for n in ast.walk(tree) if isinstance(n, (ast.FunctionDef, ast.ClassDef))}
+    assert set(SPATIAL_HELPERS) <= set(defs)
+    for name in SPATIAL_HELPERS:
+        for node in ast.walk(defs[name]):
+            if isinstance(node, ast.Attribute):
+                assert node.attr not in ("cpu", "numpy", "tolist", "item"), (name, node.attr)
+            if isinstance(node, ast.Constant):
+                assert node.value != "cpu", name
+
+
+def test_a_zero_row_shard_off_the_cpu_never_reaches_the_plain_version():
+    """A spatial rank may own no row of a small map (one row over two
+    ranks). Its normalize+LIF call on a tensor off the CPU goes to the
+    operators of kernels/ops.py, forward and backward (on a card the
+    wrappers, which launch no empty grid and count the call in
+    ``skipped_empty``; on a meta tensor the fake), never to the plain
+    version."""
+    import torch
+
+    from snn_object_detectionddp_tpu_torch.kernels import affine_lif as kernels_affine
+    from snn_object_detectionddp_tpu_torch.kernels import ops
+    from snn_object_detectionddp_tpu_torch.models.lif import LIFParams, run_affine_lif_tb
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("a zero-row shard off the CPU reached the plain version")
+
+    before = dict(kernels_affine.launch_counts)
+    with pytest.MonkeyPatch.context() as mp:
+        for name in ("affine_lif_forward_reference", "affine_lif_backward_reference"):
+            mp.setattr(ops, name, refuse)
+        for grad in (False, True):
+            x = torch.zeros(2 * 3, 0, 5, 8, device="meta", requires_grad=grad)
+            a = torch.ones(2, 3, 8, device="meta", requires_grad=grad)
+            s, v = run_affine_lif_tb(x, a, torch.zeros(2, 3, 8, device="meta"), LIFParams())
+            assert s.is_meta and s.shape == (6, 0, 5, 8) and v.shape == (3, 0, 5, 8)
+            if grad:
+                gx, ga = torch.autograd.grad((s.sum() + v.sum()), (x, a))
+                assert gx.is_meta and gx.shape == x.shape and ga.shape == a.shape
+    assert kernels_affine.launch_counts == before
+    assert set(kernels_affine.skipped_empty) == set(kernels_affine.KERNELS)
+
+
 def test_evaluation_runs_on_the_detectors_device():
     """make_predict_fn and evaluate_batches take no device: they run on the
     detector's, which defaults to the card and raises without one."""

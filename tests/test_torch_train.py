@@ -308,11 +308,22 @@ def test_step_options_that_raise(setup):
     assert callable(tstep.make_step_fns(tdet, ttx, sch, remat_policy="save_conv").train_step)
     with pytest.raises(ValueError, match="remat_policy"):
         tstep.make_step_fns(tdet, ttx, sch, remat_policy="half")
-    # spatial is unported; a tensor axis is inference-only; FSDP needs a mesh
-    for key, val, error, match in (("spatial", 2, NotImplementedError, "mesh.spatial"),
+    # A tensor axis is inference-only. A spatial axis in the config with no
+    # mesh given builds the one-device step (the command lines make the
+    # mesh from the config; tests/test_torch_spatial.py runs it on one):
+    # the same loss as the plain step. FSDP needs a mesh.
+    for key, val, error, match in (("spatial", 2, None, None),
                                    ("tensor", 2, ValueError, "inference-only")):
         cfg = _tiny(tconfig)
         setattr(cfg.mesh, key, val)
+        if error is None:
+            fns = tstep.make_step_fns(TDetector.from_config(cfg, device="cpu"), ttx, sch)
+            batch = _batch(3)
+            params = setup["fresh_tstate"]()["params"]
+            assert fns.mesh is None
+            assert float(fns.eval_step(params, batch)["loss"]) == float(
+                setup["fns"].eval_step(params, batch)["loss"])
+            continue
         with pytest.raises(error, match=match):
             tstep.make_step_fns(TDetector.from_config(cfg, device="cpu"), ttx, sch)
     with pytest.raises(ValueError, match="requires a device mesh"):
