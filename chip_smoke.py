@@ -2,7 +2,7 @@
 
 Run from the repository root:  python3 chip_smoke.py
 
-1. Builds the hand-written kernels and the host PNG row filters from
+1. Builds the hand-written kernels and the host PNG decoder from
    their sources in the checkout (one compiler process per source, nvcc
    or the host C++ compiler, started together).
 2. Holds each kernel against its plain PyTorch version on the card at the
@@ -58,14 +58,21 @@ Run from the repository root:  python3 chip_smoke.py
    into model and NMS, and a frame of the token-LSTM model.
 10. Drives the data pipeline and the two command lines at the same full
    width: a DSEC-shaped tree written by the port's generator (3 sequences
-   x 9 frames, 480x640), read_rgb against the plain row filters (every
-   frame, and one frame in each of the 5 filter types), main.train_code
-   for one epoch (B=2, 4 decode threads) and resumed for a second, then
-   eval_2.evaluate on best.pt; counts zeroed before and read after each
-   run: 20 A2 + 20 A3 a train step, 20 A1 a validation step and for the
-   spike-rate pass, 20 A1 an evaluation batch. Times the loader alone,
-   the CLI's host ms per train step beside phase 4's step, and its
-   device-busy share.
+   x 9 frames, 480x640), read_rgb (the C++ decoder, csrc/png_decode.cpp)
+   against decode_png_reference (Python, zlib, numpy) on every frame and
+   one frame in each of the 5 filter types; the loader alone in turns
+   (pool, native, native, pool) at 1 and 4 threads, every native batch
+   (the loader's one path: one decode_batch call for all B*T frames)
+   byte-equal to those of the earlier loader, read_rgb mapped over the
+   samples on a thread pool (here only, as the figure before);
+   main.train_code for one epoch in turns with each (B=2, 4 decode
+   threads), resumed for a second epoch and eval_2.evaluate on best.pt;
+   counts zeroed before and read after each run: 20 A2 + 20 A3 a train
+   step, 20 A1 a validation step and for the spike-rate pass, 20 A1 an
+   evaluation batch, and the decode_batch calls of each path. Times
+   read_rgb of one frame, the loader alone, the CLI's host ms per train
+   step with each path beside phase 4's step, its device-busy share, and
+   the train step alone and beside a decoding loader of each path.
 11. Drives data parallelism over torch.distributed at the same full width:
    the DP step (make_step_fns(mesh=make_mesh())) over a one-rank NCCL
    group against the library step on the same batches from cloned states,
@@ -175,6 +182,7 @@ exit, no result line). Needs a CUDA card; there is no CPU path.
 
 from __future__ import annotations
 
+import contextlib
 import importlib.util
 import json
 import os
@@ -244,6 +252,7 @@ N_LSTM_FRAMES = 3  # frames per stream served by the token-LSTM model
 N_LSTM_TIMED = 20  # B=1 dispatches of the token-LSTM model timed
 DATA_SEQS, DATA_FRAMES = 3, 9  # the data phase's tree: 15 windows of 5 frames
 DATA_THREADS = 4  # decode threads of the data phase's loaders
+TURNS = ("pool", "native", "native", "pool")  # the data phase's decode paths, in turns
 # Batched (B=2) against alone (B=1) in bf16: cuDNN may pick another
 # algorithm for another batch and round differently, so sorted scores are
 # compared to 1e-2, as the clip-vs-sequential check does.
@@ -1195,9 +1204,10 @@ def run_lstm_serving(card, K, n_blocks, rng) -> None:
 
 
 def check_png(frames, scratch) -> str:
-    """read_rgb (compiled row filters) against unfilter_reference (numpy)
-    on the written frames and on one frame re-encoded with each of the five
-    filter types: every pixel equal."""
+    """read_rgb (the C++ decoder) against decode_png_reference (Python's
+    chunk walk, zlib and the numpy row filters) on the written frames and
+    on one frame re-encoded with each of the five filter types: every
+    pixel equal."""
     import zlib
 
     from snn_object_detectionddp_tpu_torch.data import png
@@ -1207,30 +1217,89 @@ def check_png(frames, scratch) -> str:
     def reference(path):
         data = open(path, "rb").read()
         idat = b"".join(bytes(v) for t, v in png._chunks(data, str(path)) if t == b"IDAT")
-        h, w = png.png_shape(path)
         t0 = time.perf_counter()
-        raw = zlib.decompress(idat)
+        zlib.decompress(idat)
         inflate_ms.append((time.perf_counter() - t0) * 1e3)
-        return png.unfilter_reference(raw, h, w * 3, 3).reshape(h, w, 3)
+        return png.decode_png_reference(data, str(path))
 
     decode_ms = []
     for path in frames:
         t0 = time.perf_counter()
         got = png.read_rgb(path)
         decode_ms.append((time.perf_counter() - t0) * 1e3)
-        if not np.array_equal(got, reference(path)):
-            raise AssertionError(f"read_rgb differs from unfilter_reference on {path}")
+        if got.tobytes() != reference(path).tobytes():
+            raise AssertionError(f"read_rgb differs from decode_png_reference on {path}")
     img = png.read_rgb(frames[0])
     for ft in range(5):
         path = os.path.join(scratch, f"filter{ft}.png")
         png.write_rgb(path, img, ft)
         got = png.read_rgb(path)
         if not (np.array_equal(got, img) and np.array_equal(reference(path), img)):
-            raise AssertionError(f"filter type {ft}: read_rgb or unfilter_reference differs")
-    return (f"{len(frames)} written frames and one re-encoded with each of the 5 filter types "
-            f"bit-equal to unfilter_reference; read_rgb of one {img.shape[0]}x{img.shape[1]} frame "
-            f"on one thread ms {spread(decode_ms)}, of which zlib's inflate alone "
-            f"{spread(inflate_ms[: len(frames)])}")
+            raise AssertionError(f"filter type {ft}: read_rgb or decode_png_reference differs")
+    return (f"{len(frames)} written frames and one re-encoded with each of the 5 filter types: "
+            f"the C++ decoder byte-equal to decode_png_reference; read_rgb of one "
+            f"{img.shape[0]}x{img.shape[1]} frame on one thread ms {spread(decode_ms)}, beside "
+            f"Python's zlib inflate of its IDAT alone {spread(inflate_ms[: len(frames)])}")
+
+
+@contextlib.contextmanager
+def decode_path(path: str):
+    """The loader's decode inside the block: "native" (its one path: one
+    native.decode_batch call a batch) or "pool", the loader before the
+    whole-batch decoder, kept here as the figure it is timed against:
+    read_rgb of each sample's frames mapped over the samples on a thread
+    pool of the loader's num_threads (at B=2 two of them decode)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from snn_object_detectionddp_tpu_torch.data.pipeline import BatchLoader
+    from snn_object_detectionddp_tpu_torch.data.png import read_rgb
+
+    if path == "native":
+        yield
+        return
+    pools, lock = {}, threading.Lock()  # two loaders' producers may decode at once
+
+    def pool_decode(self, samples):
+        with lock:
+            pool = pools.get(self.num_threads)
+            if pool is None:
+                pool = pools[self.num_threads] = ThreadPoolExecutor(self.num_threads)
+        fn = self.transform or (lambda f: f)
+        return np.stack(list(pool.map(
+            lambda s: np.stack([fn(read_rgb(p)) for p in s.frame_paths]), samples)))
+
+    native_decode = BatchLoader._decode
+    BatchLoader._decode = pool_decode
+    try:
+        yield
+    finally:
+        BatchLoader._decode = native_decode
+        for pool in pools.values():
+            pool.shutdown()
+
+
+@contextlib.contextmanager
+def counting_decode_batch(native):
+    """native.decode_batch counted inside the block: yields [calls]."""
+    real, calls = native.decode_batch, [0]
+
+    def counted(*args, **kwargs):
+        calls[0] += 1
+        return real(*args, **kwargs)
+
+    native.decode_batch = counted
+    try:
+        yield calls
+    finally:
+        native.decode_batch = real
+
+
+def same_batches(a, b) -> bool:
+    return len(a) == len(b) and all(
+        x.keys() == y.keys() and x["paths"] == y["paths"]
+        and all(x[k].dtype == y[k].dtype and x[k].shape == y[k].shape
+                and x[k].tobytes() == y[k].tobytes() for k in x if k != "paths")
+        for x, y in zip(a, b))
 
 
 def loader_contention(det, state, batches, loader) -> str:
@@ -1284,213 +1353,269 @@ def run_data_cli_phase(card, K, n_blocks, library_step, scratch) -> dict:
     DSEC-shaped tree written by the port's generator (3 sequences x 9
     frames at 480x640, seq_len 5: 15 windows, 2 sequences / 10 windows /
     5 steps of B=2 for training, 1 sequence / 5 windows / a partial third
-    batch for validation), read_rgb against the plain row filters,
-    main.train_code for one epoch and resumed for a second, eval_2.evaluate
-    on best.pt, each with its launch counts; the loader alone, the CLI's
-    host ms per train step beside the library-driven step of phase 4 and
-    its device-busy share. The tree stays under ``scratch`` (``dsec/``)
-    for the data-parallel phase. Returns the launches of the three runs."""
-    import contextlib
+    batch for validation), read_rgb against decode_png_reference,
+    main.train_code for one epoch with each decode path in turns and
+    resumed for a second, eval_2.evaluate on best.pt, each with its launch
+    counts; the loader alone with each path in turns (native batches
+    byte-equal to the pool's), the CLI's host ms per train step with each
+    path beside the library-driven step of phase 4 and its device-busy
+    share. The native path's decode_batch calls are counted in every run.
+    The tree stays under ``scratch`` (``dsec/``) for the data-parallel
+    phase. Returns the launches of the runs."""
     import io
 
     from snn_object_detectionddp_tpu_torch import eval_2
     from snn_object_detectionddp_tpu_torch import main as cli
     from snn_object_detectionddp_tpu_torch.config import Config
+    from snn_object_detectionddp_tpu_torch.data import native
     from snn_object_detectionddp_tpu_torch.data.dsec import DSECIndex, train_val_split
     from snn_object_detectionddp_tpu_torch.data.pipeline import BatchLoader
     from snn_object_detectionddp_tpu_torch.data.synthetic import make_dataset
     from snn_object_detectionddp_tpu_torch.evals import validator
     from snn_object_detectionddp_tpu_torch.models.detector import Detector
 
-    cfg = Config()  # yolo11m, 480x640, s2d4, ConvLSTM, bf16
-    h, w = cfg.model.image_size
-    t0 = time.perf_counter()
-    root = make_dataset(os.path.join(scratch, "dsec"), num_sequences=DATA_SEQS,
-                        splits=("train",), num_frames=DATA_FRAMES, height=h, width=w)
-    write_s = time.perf_counter() - t0
-    frames = sorted(str(p) for p in root.rglob("*.png"))
-    print(f"data phase: wrote {len(frames)} {h}x{w} frames with data/synthetic.py in "
-          f"{write_s:.2f} s; " + check_png(frames, scratch))
+    with counting_decode_batch(native) as native_calls:
+        cfg = Config()  # yolo11m, 480x640, s2d4, ConvLSTM, bf16
+        h, w = cfg.model.image_size
+        t0 = time.perf_counter()
+        root = make_dataset(os.path.join(scratch, "dsec"), num_sequences=DATA_SEQS,
+                            splits=("train",), num_frames=DATA_FRAMES, height=h, width=w)
+        write_s = time.perf_counter() - t0
+        frames = sorted(str(p) for p in root.rglob("*.png"))
+        print(f"data phase: wrote {len(frames)} {h}x{w} frames with data/synthetic.py in "
+              f"{write_s:.2f} s; " + check_png(frames, scratch))
 
-    for split in ("train", "val", "test"):
-        cfg.dataset.split(split).path = str(root / "train")
-    tr = cfg.training
-    tr.batch_size, tr.num_workers, tr.epochs = B_TRAIN, DATA_THREADS, 1
-    tr.save_dir = os.path.join(scratch, "run")
-    tr.weights_path = os.path.join(tr.save_dir, "latest.pt")
-    with contextlib.redirect_stdout(io.StringIO()):
-        index = DSECIndex(cfg, "train")
-        train_idx, val_idx = train_val_split(index, seed=tr.seed)
-    n_train = len(train_idx) // B_TRAIN
-    n_val = -(-len(val_idx) // B_TRAIN)
-    if (len(index), len(train_idx), len(val_idx)) != (15, 10, 5):
-        raise AssertionError(f"index/split {len(index)}/{len(train_idx)}/{len(val_idx)}, want 15/10/5")
+        for split in ("train", "val", "test"):
+            cfg.dataset.split(split).path = str(root / "train")
+        tr = cfg.training
+        tr.batch_size, tr.num_workers, tr.epochs = B_TRAIN, DATA_THREADS, 1
+        tr.save_dir = os.path.join(scratch, "run")
+        tr.weights_path = os.path.join(tr.save_dir, "latest.pt")
+        with contextlib.redirect_stdout(io.StringIO()):
+            index = DSECIndex(cfg, "train")
+            train_idx, val_idx = train_val_split(index, seed=tr.seed)
+        n_train = len(train_idx) // B_TRAIN
+        n_val = -(-len(val_idx) // B_TRAIN)
+        if (len(index), len(train_idx), len(val_idx)) != (15, 10, 5):
+            raise AssertionError(f"index/split {len(index)}/{len(train_idx)}/{len(val_idx)}, want 15/10/5")
 
-    # The loader alone: two epochs of the shuffled train loader, with 1
-    # and with DATA_THREADS decode threads.
-    def make_loader(threads):
-        return BatchLoader(index, train_idx, batch_size=B_TRAIN, max_boxes=cfg.model.max_boxes,
-                           shuffle=True, seed=tr.seed, num_threads=threads, drop_last=True)
+        # The loader alone: two epochs of the shuffled train loader, with 1
+        # and with DATA_THREADS decode threads, each decode path in turns
+        # (pool, native, native, pool); every batch of every turn
+        # byte-equal to the first turn's, one decode_batch call a native
+        # batch and none a pool batch.
+        def make_loader(threads):
+            return BatchLoader(index, train_idx, batch_size=B_TRAIN, max_boxes=cfg.model.max_boxes,
+                               shuffle=True, seed=tr.seed, num_threads=threads, drop_last=True)
 
-    loader_ms = {}
-    for threads in (1, DATA_THREADS):
-        t0, batches = time.perf_counter(), []
-        for _ in range(2):
-            batches += list(make_loader(threads))
-        loader_ms[threads] = (time.perf_counter() - t0) * 1e3 / len(batches)
-    if batches[0]["images"].shape != (B_TRAIN, T_TRAIN, h, w, 3):
-        raise AssertionError(f"loader batch {batches[0]['images'].shape}")
+        loader_ms = {}
+        for threads in (1, DATA_THREADS):
+            first = None
+            for path in TURNS:
+                calls0, batches = native_calls[0], []
+                with decode_path(path):
+                    t0 = time.perf_counter()
+                    for _ in range(2):
+                        batches += list(make_loader(threads))
+                    ms = (time.perf_counter() - t0) * 1e3 / len(batches)
+                loader_ms.setdefault((threads, path), []).append(ms)
+                n_calls = native_calls[0] - calls0
+                if n_calls != (len(batches) if path == "native" else 0):
+                    raise AssertionError(f"{path} loader: {n_calls} decode_batch calls for "
+                                         f"{len(batches)} batches")
+                first = first or batches
+                if not same_batches(batches, first):
+                    raise AssertionError(f"{path} batches at {threads} threads differ from the "
+                                         f"pool's")
+        if batches[0]["images"].shape != (B_TRAIN, T_TRAIN, h, w, 3):
+            raise AssertionError(f"loader batch {batches[0]['images'].shape}")
 
-    # Wrap the step functions train_code makes: per-step launch counts,
-    # the host clock and the calling thread's CPU at each step's start,
-    # and (when asked) a profiler window over the epoch's train steps.
-    make_step_fns = cli.make_step_fns
-    record = {}
+        # Wrap the step functions train_code makes: per-step launch counts,
+        # the host clock and the calling thread's CPU at each step's start,
+        # and (when asked) a profiler window over the epoch's train steps.
+        make_step_fns = cli.make_step_fns
+        record = {}
 
-    def instrumented(*args, **kwargs):
-        fns = make_step_fns(*args, **kwargs)
+        def instrumented(*args, **kwargs):
+            fns = make_step_fns(*args, **kwargs)
 
-        def counted(kind, fn):
-            def step(*a):
-                prof = record.get("prof")
-                if kind == "train" and prof is not None and "t0" not in record:
-                    prof.start()
-                    record["t0"] = time.perf_counter()
-                if kind == "eval" and prof is not None and "t1" not in record:
-                    torch.cuda.synchronize()
-                    record["t1"] = time.perf_counter()
-                    prof.stop()
-                record["starts"].setdefault(kind, []).append(
-                    (time.perf_counter(), time.thread_time()))
-                c0 = dict(K.launch_counts)
-                out = fn(*a)
-                record["steps"].setdefault(kind, []).append(
-                    {k: K.launch_counts[k] - c0[k] for k in c0})
-                return out
-            return step
+            def counted(kind, fn):
+                def step(*a):
+                    prof = record.get("prof")
+                    if kind == "train" and prof is not None and "t0" not in record:
+                        prof.start()
+                        record["t0"] = time.perf_counter()
+                    if kind == "eval" and prof is not None and "t1" not in record:
+                        torch.cuda.synchronize()
+                        record["t1"] = time.perf_counter()
+                        prof.stop()
+                    record["starts"].setdefault(kind, []).append(
+                        (time.perf_counter(), time.thread_time()))
+                    c0 = dict(K.launch_counts)
+                    out = fn(*a)
+                    record["steps"].setdefault(kind, []).append(
+                        {k: K.launch_counts[k] - c0[k] for k in c0})
+                    return out
+                return step
 
-        return fns._replace(train_step=counted("train", fns.train_step),
-                            eval_step=counted("eval", fns.eval_step))
+            return fns._replace(train_step=counted("train", fns.train_step),
+                                eval_step=counted("eval", fns.eval_step))
 
-    def run_cli(profile: bool):
-        record.clear()
-        record.update(steps={}, starts={})
-        if profile:
-            record["prof"] = torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
-        det = Detector.from_config(cfg, device="cuda")
+        def run_cli(profile: bool):
+            record.clear()
+            record.update(steps={}, starts={})
+            if profile:
+                record["prof"] = torch.profiler.profile(activities=[
+                    torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA])
+            det = Detector.from_config(cfg, device="cuda")
+            out = io.StringIO()
+            cli.make_step_fns = instrumented
+            try:
+                K.reset_launch_counts()
+                with contextlib.redirect_stdout(out):
+                    state = cli.train_code(cfg, det)
+                torch.cuda.synchronize()
+                launches = dict(K.launch_counts)
+            finally:
+                cli.make_step_fns = make_step_fns
+            return state, launches, out.getvalue(), det
+
+        want_train = {"affine_lif_fwd": 0, "affine_lif_fwd_res": n_blocks, "affine_lif_bwd": n_blocks}
+        want_eval = {"affine_lif_fwd": n_blocks, "affine_lif_fwd_res": 0, "affine_lif_bwd": 0}
+        # One epoch: 20 A2 + 20 A3 a train step, 20 A1 a validation step,
+        # and 20 A1 for the spike-rate pass train_loop makes over the first
+        # validation batch.
+        want_epoch = {"affine_lif_fwd": n_blocks * (n_val + 1),
+                      "affine_lif_fwd_res": n_blocks * n_train, "affine_lif_bwd": n_blocks * n_train}
+        total = dict.fromkeys(want_epoch, 0)
+
+        def check_epoch(tag, launches, log):
+            steps = record["steps"]
+            if (len(steps.get("train", [])) != n_train or any(c != want_train for c in steps["train"])
+                    or len(steps.get("eval", [])) != n_val or any(c != want_eval for c in steps["eval"])
+                    or launches != want_epoch):
+                raise AssertionError(f"{tag}: launches {launches} (want {want_epoch}); per step "
+                                     f"{steps}")
+            for k in total:
+                total[k] += launches[k]
+            for name in ("latest.pt", "best.pt"):
+                if not os.path.exists(os.path.join(tr.save_dir, name)):
+                    raise AssertionError(f"{tag}: train_code wrote no {name}")
+            print(f"{tag}: " + " | ".join(l for l in log.splitlines()
+                                          if l.startswith(("---", "Total", "Resum", "Average"))))
+
+        def run_decoded(tag, path, profile):
+            """run_cli with the loader's decode path set, its decode_batch
+            calls checked: at least one a train and a validation batch on
+            the native path, none on the pool's."""
+            calls0 = native_calls[0]
+            with decode_path(path):
+                state, launches, log, det = run_cli(profile)
+            n_calls = native_calls[0] - calls0
+            if not (n_calls >= n_train + n_val if path == "native" else n_calls == 0):
+                raise AssertionError(f"{tag}: {n_calls} decode_batch calls with the {path} path")
+            check_epoch(f"{tag}, {path} decode, {n_calls} decode_batch calls", launches, log)
+            return state, log, det
+
+        # One epoch with each decode path in turns: the host ms between
+        # train-step starts and the calling thread's CPU time.
+        cli_ms, cli_cpu = {}, {}
+        for path in TURNS:
+            state, log, _ = run_decoded("main.train_code epoch 1", path, profile=False)
+            if state["step"] != n_train or "--- Epoch 1/1 ---" not in log:
+                raise AssertionError(f"train_code took {state['step']} steps, want {n_train}")
+            starts = record["starts"]["train"]
+            cli_ms.setdefault(path, []).extend((b[0] - a[0]) * 1e3 for a, b in zip(starts, starts[1:]))
+            cli_cpu.setdefault(path, []).extend((b[1] - a[1]) * 1e3 for a, b in zip(starts, starts[1:]))
+
+        tr.resume_training, tr.epochs = True, 2
+        state, log, det = run_decoded("main.train_code resumed", "native", profile=True)
+        ckpt = torch.load(tr.weights_path, map_location="cpu", weights_only=True)
+        if ("--- Epoch 2/2 ---" not in log or "--- Epoch 1/2 ---" in log
+                or state["step"] != 2 * n_train or ckpt["epoch"] != 1
+                or ckpt["state"]["step"] != 2 * n_train):
+            raise AssertionError(f"resume did not start at epoch 2 and carry the step counter on "
+                                 f"(step {state['step']}, checkpoint epoch {ckpt['epoch']})")
+        del ckpt
+        contention = {}
+        for path in ("pool", "native"):
+            calls0 = native_calls[0]
+            with decode_path(path):
+                contention[path] = loader_contention(det, state, batches, make_loader(DATA_THREADS))
+            if (native_calls[0] == calls0) == (path == "native"):
+                raise AssertionError(f"loader_contention did not run the {path} path")
+        del state, det
+        prof, window_ms = record["prof"], (record["t1"] - record["t0"]) * 1e3
+        evs = kernel_rows(prof)
+        dev_ms = sum(e.self_device_time_total for e in evs) / 1e3
+        if dev_ms <= 0:
+            raise AssertionError("the profiler recorded no device time over the CLI's train steps")
+        n_a3 = sum(e.count for e in evs if "affine_lif_bwd_kernel" in e.key)
+        if n_a3 != n_blocks * n_train:
+            raise AssertionError(f"profiler: {n_a3} affine_lif_bwd_kernel rows over {n_train} steps")
+
+        # eval_2 on best.pt: the partial batch's padded row must not reach
+        # the metrics (one update per real window).
+        updates = [0]
+        metrics_cls = validator.DetMetrics
+
+        class CountingMetrics(metrics_cls):
+            def update(self, **kw):
+                updates[0] += 1
+                return super().update(**kw)
+
         out = io.StringIO()
-        cli.make_step_fns = instrumented
+        validator.DetMetrics = CountingMetrics
+        calls0 = native_calls[0]
         try:
             K.reset_launch_counts()
-            with contextlib.redirect_stdout(out):
-                state = cli.train_code(cfg, det)
+            with contextlib.redirect_stdout(out), decode_path("native"):
+                results = eval_2.evaluate(cfg)
             torch.cuda.synchronize()
-            launches = dict(K.launch_counts)
+            eval_launches = dict(K.launch_counts)
         finally:
-            cli.make_step_fns = make_step_fns
-        return state, launches, out.getvalue(), det
-
-    want_train = {"affine_lif_fwd": 0, "affine_lif_fwd_res": n_blocks, "affine_lif_bwd": n_blocks}
-    want_eval = {"affine_lif_fwd": n_blocks, "affine_lif_fwd_res": 0, "affine_lif_bwd": 0}
-    # One epoch: 20 A2 + 20 A3 a train step, 20 A1 a validation step,
-    # and 20 A1 for the spike-rate pass train_loop makes over the first
-    # validation batch.
-    want_epoch = {"affine_lif_fwd": n_blocks * (n_val + 1),
-                  "affine_lif_fwd_res": n_blocks * n_train, "affine_lif_bwd": n_blocks * n_train}
-    total = dict.fromkeys(want_epoch, 0)
-
-    def check_epoch(tag, launches, log):
-        steps = record["steps"]
-        if (len(steps.get("train", [])) != n_train or any(c != want_train for c in steps["train"])
-                or len(steps.get("eval", [])) != n_val or any(c != want_eval for c in steps["eval"])
-                or launches != want_epoch):
-            raise AssertionError(f"{tag}: launches {launches} (want {want_epoch}); per step "
-                                 f"{steps}")
+            validator.DetMetrics = metrics_cls
+        eval_calls = native_calls[0] - calls0
+        if eval_calls != n_val:
+            raise AssertionError(f"eval_2: {eval_calls} decode_batch calls for {n_val} batches")
+        keys = {"metrics/precision(B)", "metrics/recall(B)", "metrics/mAP50(B)",
+                "metrics/mAP50-95(B)", "fitness"}
+        if set(results) != keys or not all(np.isfinite(v) for v in results.values()):
+            raise AssertionError(f"eval_2 results {results}")
+        want = {"affine_lif_fwd": n_blocks * n_val, "affine_lif_fwd_res": 0, "affine_lif_bwd": 0}
+        if eval_launches != want or updates[0] != len(val_idx) or "Loaded checkpoint" not in out.getvalue():
+            raise AssertionError(f"eval_2: launches {eval_launches} (want {want}), {updates[0]} "
+                                 f"metric updates for {len(val_idx)} windows in {n_val} batches")
         for k in total:
-            total[k] += launches[k]
-        for name in ("latest.pt", "best.pt"):
-            if not os.path.exists(os.path.join(tr.save_dir, name)):
-                raise AssertionError(f"{tag}: train_code wrote no {name}")
-        print(f"{tag}: " + " | ".join(l for l in log.splitlines()
-                                      if l.startswith(("---", "Total", "Resum", "Average"))))
+            total[k] += eval_launches[k]
+        print(f"eval_2.evaluate on best.pt ok (native decode, {eval_calls} decode_batch calls): "
+              f"{n_val} batches of {B_TRAIN} for {len(val_idx)} windows, {updates[0]} metric "
+              f"updates (the padded row never reached them), launches {eval_launches}; results "
+              f"(2 epochs on 5 steps) {results}")
 
-    state, launches, log, _ = run_cli(profile=False)
-    check_epoch("main.train_code epoch 1", launches, log)
-    if state["step"] != n_train or "--- Epoch 1/1 ---" not in log:
-        raise AssertionError(f"train_code took {state['step']} steps, want {n_train}")
-    starts = record["starts"]["train"]
-    cli_ms = [(b[0] - a[0]) * 1e3 for a, b in zip(starts, starts[1:])]
-    cli_cpu = [(b[1] - a[1]) * 1e3 for a, b in zip(starts, starts[1:])]
-
-    tr.resume_training, tr.epochs = True, 2
-    state, launches, log, det = run_cli(profile=True)
-    check_epoch("main.train_code resumed", launches, log)
-    ckpt = torch.load(tr.weights_path, map_location="cpu", weights_only=True)
-    if ("--- Epoch 2/2 ---" not in log or "--- Epoch 1/2 ---" in log
-            or state["step"] != 2 * n_train or ckpt["epoch"] != 1
-            or ckpt["state"]["step"] != 2 * n_train):
-        raise AssertionError(f"resume did not start at epoch 2 and carry the step counter on "
-                             f"(step {state['step']}, checkpoint epoch {ckpt['epoch']})")
-    del ckpt
-    contention = loader_contention(det, state, batches, make_loader(DATA_THREADS))
-    del state, det
-    prof, window_ms = record["prof"], (record["t1"] - record["t0"]) * 1e3
-    evs = kernel_rows(prof)
-    dev_ms = sum(e.self_device_time_total for e in evs) / 1e3
-    if dev_ms <= 0:
-        raise AssertionError("the profiler recorded no device time over the CLI's train steps")
-    n_a3 = sum(e.count for e in evs if "affine_lif_bwd_kernel" in e.key)
-    if n_a3 != n_blocks * n_train:
-        raise AssertionError(f"profiler: {n_a3} affine_lif_bwd_kernel rows over {n_train} steps")
-
-    # eval_2 on best.pt: the partial batch's padded row must not reach
-    # the metrics (one update per real window).
-    updates = [0]
-    metrics_cls = validator.DetMetrics
-
-    class CountingMetrics(metrics_cls):
-        def update(self, **kw):
-            updates[0] += 1
-            return super().update(**kw)
-
-    out = io.StringIO()
-    validator.DetMetrics = CountingMetrics
-    try:
-        K.reset_launch_counts()
-        with contextlib.redirect_stdout(out):
-            results = eval_2.evaluate(cfg)
-        torch.cuda.synchronize()
-        eval_launches = dict(K.launch_counts)
-    finally:
-        validator.DetMetrics = metrics_cls
-    keys = {"metrics/precision(B)", "metrics/recall(B)", "metrics/mAP50(B)",
-            "metrics/mAP50-95(B)", "fitness"}
-    if set(results) != keys or not all(np.isfinite(v) for v in results.values()):
-        raise AssertionError(f"eval_2 results {results}")
-    want = {"affine_lif_fwd": n_blocks * n_val, "affine_lif_fwd_res": 0, "affine_lif_bwd": 0}
-    if eval_launches != want or updates[0] != len(val_idx) or "Loaded checkpoint" not in out.getvalue():
-        raise AssertionError(f"eval_2: launches {eval_launches} (want {want}), {updates[0]} "
-                             f"metric updates for {len(val_idx)} windows in {n_val} batches")
-    for k in total:
-        total[k] += eval_launches[k]
-    print(f"eval_2.evaluate on best.pt ok: {n_val} batches of {B_TRAIN} for {len(val_idx)} "
-          f"windows, {updates[0]} metric updates (the padded row never reached them), "
-          f"launches {eval_launches}; results (2 epochs on 5 steps) {results}")
-
-    print(f"[{card}] data + command line (host clock): BatchLoader alone (B={B_TRAIN} "
-          f"T={T_TRAIN} {h}x{w}, shuffled, {len(batches)} batches) {loader_ms[DATA_THREADS]:.3f} "
-          f"ms/batch with {DATA_THREADS} threads, {loader_ms[1]:.3f} with 1; "
-          f"main.train_code epoch 1: {spread(cli_ms)} ms between train-step starts, calling "
-          f"thread on the CPU {spread(cli_cpu)} ms, beside phase 4's library-driven step "
-          f"{library_step['step_ms']:.3f} ms (thread on the CPU {library_step['thread_ms']:.3f} "
-          f"ms); resumed epoch under the profiler: {window_ms / n_train:.3f} ms per train "
-          f"step over the window, device (kernel) time {dev_ms / n_train:.3f} ms/step "
-          f"(phase 4: {library_step['dev_ms']:.3f}), busy {dev_ms / n_train / float(np.median(cli_ms)):.1%} "
-          f"of the unprofiled median CLI step, {dev_ms / window_ms:.1%} of the profiled window; "
-          f"the same train step synchronised, alone and with a {DATA_THREADS}-thread BatchLoader "
-          f"decoding beside it, in turns (ms, thread on the CPU ms): {contention}")
-    return total
+        turns = ", ".join(TURNS)
+        loader = "; ".join(
+            f"{threads} thread{'s' * (threads > 1)}: " + ", ".join(
+                f"{path} {' / '.join(f'{ms:.3f}' for ms in loader_ms[(threads, path)])}"
+                for path in ("pool", "native"))
+            for threads in (1, DATA_THREADS))
+        cli_line = "; ".join(f"{path} {spread(cli_ms[path])} ms between train-step starts, calling "
+                             f"thread on the CPU {spread(cli_cpu[path])} ms"
+                             for path in ("pool", "native"))
+        busy = dev_ms / n_train / float(np.median(cli_ms["native"]))
+        print(f"[{card}] data + command line (host clock): BatchLoader alone (B={B_TRAIN} "
+              f"T={T_TRAIN} {h}x{w}, shuffled, {len(batches)} batches a turn, turns {turns}; "
+              f"native batches byte-equal to the pool's) ms/batch: {loader}; main.train_code "
+              f"epoch 1 in turns {turns}: {cli_line}; beside phase 4's library-driven step "
+              f"{library_step['step_ms']:.3f} ms (thread on the CPU {library_step['thread_ms']:.3f} "
+              f"ms); resumed epoch under the profiler (native decode): {window_ms / n_train:.3f} "
+              f"ms per train step over the window, device (kernel) time {dev_ms / n_train:.3f} "
+              f"ms/step (phase 4: {library_step['dev_ms']:.3f}), busy {busy:.1%} of the "
+              f"unprofiled median native CLI step, {dev_ms / window_ms:.1%} of the profiled "
+              f"window; the same train step synchronised, alone and with a {DATA_THREADS}-thread "
+              f"BatchLoader decoding beside it, in turns (ms, thread on the CPU ms): "
+              + "; ".join(f"{path} loader: {contention[path]}" for path in ("pool", "native")))
+        return total
 
 
 def free_port() -> int:
@@ -3096,11 +3221,11 @@ def main() -> None:
     dev_name = torch.cuda.get_device_name(0)
     print(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}; card: {card}")
 
-    # -- build the kernels and the PNG row filters from their sources, one
+    # -- build the kernels and the PNG decoder from their sources, one
     # compiler process each, all started together ---------------------------
     t0 = time.perf_counter()
     each = kernel_build.build_all()
-    print(f"built {', '.join(K.KERNELS + KL.KERNELS)}, snn_png_unfilter and the raster primitives in "
+    print(f"built {', '.join(K.KERNELS + KL.KERNELS)}, the PNG decoder and the raster primitives in "
           f"{time.perf_counter() - t0:.1f} s ("
           + ", ".join(f"{src} {sec:.1f} s" for src, sec in each.items()) + ")")
 

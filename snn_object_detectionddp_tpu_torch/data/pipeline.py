@@ -3,10 +3,12 @@
 The port's copy of the JAX package's ``data/pipeline.py`` with the same
 batch contract:
 
-- images:  (B, T, H, W, 3) uint8, decoded by a thread pool through
-  :func:`.png.read_rgb` (zlib and the compiled row filters release the
-  interpreter lock). Normalization and spike encoding happen on the device
-  (:mod:`.encoding`);
+- images:  (B, T, H, W, 3) uint8, all B*T frames decoded in one
+  :func:`.native.decode_batch` call on the port's one PNG decoder
+  (``csrc/png_decode.cpp``, its own thread pool, without the interpreter
+  lock). The JAX package's opt-in ``SNN_TPU_NATIVE_DECODE`` has no
+  counterpart: the port has no other decode path. Normalization and spike
+  encoding happen on the device (:mod:`.encoding`);
 - labels:  (B, M, 5) float32 [class, cx, cy, w, h] normalized, zero-padded;
 - label_mask: (B, M) bool;
 - sample_mask: (B,) bool — False on the padding rows of a final partial
@@ -14,21 +16,21 @@ batch contract:
 - paths: the last-frame path of each real sample.
 
 A background thread assembles batches ahead of consumption (depth
-``prefetch``) so host decode overlaps device compute. There is one
-decoder: the JAX package's optional C++ whole-batch path is not ported.
+``prefetch``) so host decode overlaps device compute. A failed decode
+or build raises to the consumer; nothing falls back.
 """
 
 from __future__ import annotations
 
 import queue
 import threading
-from concurrent.futures import ThreadPoolExecutor
 from typing import Iterator
 
 import numpy as np
 
+from . import native
 from .dsec import DSECIndex
-from .png import read_rgb
+from .png import png_shape
 
 
 def pad_labels(labels: np.ndarray, max_boxes: int) -> tuple[np.ndarray, np.ndarray]:
@@ -85,35 +87,36 @@ class BatchLoader:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
-    def _load_sample(self, idx: int):
-        s = self.index.samples[idx]
-        frames = [read_rgb(p) for p in s.frame_paths]
+    def _decode(self, samples) -> np.ndarray:
+        """The frames of ``samples``: (b, T, H, W, 3) uint8, all b*T decoded
+        in one :func:`.native.decode_batch` call at the first frame's size,
+        then ``transform``."""
+        paths = [p for s in samples for p in s.frame_paths]
+        h, w = png_shape(paths[0])
+        images = native.decode_batch(paths, h, w, self.num_threads).reshape(len(samples), -1, h, w, 3)
         if self.transform is not None:
-            frames = [self.transform(f) for f in frames]
-        img_h, img_w = frames[-1].shape[:2]
-        images = np.stack(frames)  # (T, H, W, 3) uint8
-        if self.index.mode in ("train", "val"):
-            lab, mask = pad_labels(self.index.sample_labels(idx, img_h, img_w), self.max_boxes)
-            return images, lab, mask, s.last_frame_path
-        return images, None, None, s.last_frame_path
+            images = np.stack([np.stack([self.transform(f) for f in seq]) for seq in images])
+        return images
 
-    def _make_batch(self, batch_indices: list[int], pool: ThreadPoolExecutor) -> dict:
-        results = list(pool.map(self._load_sample, batch_indices))
-        b, bs = len(results), self.batch_size
-        images = np.stack([r[0] for r in results])
+    def _make_batch(self, batch_indices: list[int]) -> dict:
+        samples = [self.index.samples[i] for i in batch_indices]
+        images = self._decode(samples)
+        b, bs = len(samples), self.batch_size
+        img_h, img_w = images.shape[2:4]
         sample_mask = np.zeros((bs,), bool)
         sample_mask[:b] = True
         if b < bs:  # pad a final partial batch to the fixed shape
             images = np.concatenate([images, np.repeat(images[-1:], bs - b, axis=0)], axis=0)
-        batch = {"images": images, "sample_mask": sample_mask, "paths": [r[3] for r in results]}
+        batch = {"images": images, "sample_mask": sample_mask,
+                 "paths": [s.last_frame_path for s in samples]}
         if self.index.mode in ("train", "val"):
-            labels = np.stack([r[1] for r in results])
-            masks = np.stack([r[2] for r in results])
-            if b < bs:
-                labels = np.concatenate([labels, np.zeros((bs - b,) + labels.shape[1:], np.float32)])
-                masks = np.concatenate([masks, np.zeros((bs - b,) + masks.shape[1:], bool)])
+            labels = np.zeros((bs, self.max_boxes, 5), np.float32)
+            masks = np.zeros((bs, self.max_boxes), bool)
+            for k, idx in enumerate(batch_indices):
+                labels[k], masks[k] = pad_labels(self.index.sample_labels(idx, img_h, img_w),
+                                                 self.max_boxes)
             batch["labels"] = labels
-            batch["label_mask"] = masks & sample_mask[:, None]
+            batch["label_mask"] = masks
         return batch
 
     def __iter__(self) -> Iterator[dict]:
@@ -144,15 +147,14 @@ class BatchLoader:
             return False
 
         def producer():
-            with ThreadPoolExecutor(max_workers=self.num_threads) as pool:
-                try:
-                    for chunk in chunks:
-                        if stop.is_set() or not _put(self._make_batch(chunk, pool)):
-                            break
-                except Exception as e:  # surfaced to the consumer
-                    _put(e)
-                finally:
-                    _put(sentinel)
+            try:
+                for chunk in chunks:
+                    if stop.is_set() or not _put(self._make_batch(chunk)):
+                        break
+            except Exception as e:  # surfaced to the consumer
+                _put(e)
+            finally:
+                _put(sentinel)
 
         thread = threading.Thread(target=producer, daemon=True)
         thread.start()

@@ -5,19 +5,22 @@ loader linked against libpng) and writes its synthetic frames with
 ``cv2.imwrite``. The machine the port runs on need not have either, so the
 port reads and writes PNG itself:
 
-- :func:`decode_png` (and :func:`read_rgb`, for a file) parses the chunks
-  (CRC checked), inflates the concatenated IDAT stream with the standard
-  library's ``zlib``, undoes the five row filters in compiled host code
-  (``csrc/png_unfilter.cpp`` through :mod:`.native`) and converts to RGB
-  with ``cv2.IMREAD_COLOR`` semantics: gray is replicated, alpha is
-  dropped, a palette is looked up. It takes 8-bit non-interlaced gray,
-  gray+alpha, RGB, RGBA and palette images and raises ``ValueError``
-  naming the file (or the ``name`` given with the bytes) on anything else
-  (16-bit, interlaced, corrupt or of the wrong size).
+- :func:`decode_png` (and :func:`read_rgb`, for a file) decodes in
+  compiled host code (``csrc/png_decode.cpp`` through :mod:`.native`):
+  the chunks (CRC checked), zlib's inflate of the concatenated IDAT
+  stream, the five row filters and the conversion to RGB with
+  ``cv2.IMREAD_COLOR`` semantics: gray is replicated, alpha is dropped, a
+  palette is looked up. It takes 8-bit non-interlaced gray, gray+alpha,
+  RGB, RGBA and palette images and raises ``ValueError`` naming the file
+  (or the ``name`` given with the bytes) on anything else (16-bit,
+  interlaced, corrupt or of the wrong size). The data loader's
+  whole-batch path (:func:`.native.decode_batch`) is the same decoder.
 - :func:`write_rgb` writes 8-bit RGB with one filter type for every row
   (Sub by default, as ``cv2.imwrite`` writes these frames) and ``zlib``.
-- :func:`unfilter_reference` is the plain numpy version of the row
-  filters, which the compiled one is held to bit for bit.
+- :func:`decode_png_reference` is the plain version of the decoder (the
+  chunk walk in Python, the standard library's ``zlib``, the numpy row
+  filters of :func:`unfilter_reference`), which the compiled one is held
+  to byte for byte, errors included. Nothing on the main path calls it.
 """
 
 from __future__ import annotations
@@ -91,11 +94,19 @@ def decode_png(data: bytes, name: str = "PNG data") -> np.ndarray:
     """Decode PNG bytes into an (H, W, 3) uint8 RGB array: the pixels of
     ``cv2.imdecode(data, cv2.IMREAD_COLOR)`` in RGB order. ``name`` labels
     the errors."""
+    return native.decode(data, name)
+
+
+def decode_png_reference(data: bytes, name: str = "PNG data") -> np.ndarray:
+    """The plain version of :func:`decode_png`: the same pixels and the
+    same errors, in Python, ``zlib`` and numpy."""
     header, palette, idat = None, None, []
     for ctype, payload in _chunks(data, name):
         if ctype == b"IHDR":
             header = _ihdr(payload, name)
         elif ctype == b"PLTE":
+            if len(payload) % 3:
+                raise ValueError(f"{name}: PLTE chunk of {len(payload)} bytes is not a multiple of 3")
             palette = np.frombuffer(payload, np.uint8).reshape(-1, 3)
         elif ctype == b"IDAT":
             idat.append(payload)
@@ -113,9 +124,10 @@ def decode_png(data: bytes, name: str = "PNG data") -> np.ndarray:
     if len(raw) != h * (row_bytes + 1):
         raise ValueError(f"{name}: image data is {len(raw)} bytes, {h * (row_bytes + 1)} expected "
                          f"for {w}x{h} with {ch} samples a pixel")
-    buf = np.frombuffer(bytearray(raw), np.uint8)
-    native.unfilter(buf, h, row_bytes, ch, name)
-    px = buf.reshape(h, row_bytes + 1)[:, 1:].reshape(h, w, ch)
+    try:
+        px = unfilter_reference(raw, h, row_bytes, ch).reshape(h, w, ch)
+    except ValueError as e:
+        raise ValueError(f"{name}: {e}") from None
     if ch == 3:
         return np.ascontiguousarray(px)
     if ch == 4:

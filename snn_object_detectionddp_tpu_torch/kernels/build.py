@@ -3,12 +3,14 @@
 Each source becomes one shared library with a plain C interface, built
 into ``build/kernels/`` at first use (a few seconds) and loaded with
 ``ctypes``: a CUDA source (``.cu``) by ``nvcc`` for ``sm_90a``, a host C++
-source (``.cpp``: the PNG row filters of ``data/png.py``, the raster
+source (``.cpp``: the PNG decoder of ``data/native.py``, the raster
 primitives of ``data/raster.py``) by the host C++ compiler (``$CXX``, else
 ``g++``), without fused multiply-add contraction so that its float
-arithmetic is the one the source spells out. The library's name carries a hash of
-the source, of the headers it includes from ``csrc/`` and of the compiler
-flags, so an edited source is rebuilt and a stale library is never loaded.
+arithmetic is the one the source spells out, and linked with the system
+libraries ``LINK_FLAGS`` names for it (the PNG decoder: zlib and threads).
+The library's name carries a hash of the source, of the headers it
+includes from ``csrc/`` and of the compiler and link flags, so an edited
+source is rebuilt and a stale library is never loaded.
 Nothing is fetched or prebuilt: the repository's sources are the only
 input.
 """
@@ -36,7 +38,9 @@ NVCC_FLAGS = (
 CXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-ffp-contract=off")
 # Headers under csrc/ that the CUDA sources include: part of their hash.
 HEADERS = ("lif_common.cuh",)
-SOURCES = ("affine_lif.cu", "lif_scan.cu", "png_unfilter.cpp", "raster.cpp")
+SOURCES = ("affine_lif.cu", "lif_scan.cu", "png_decode.cpp", "raster.cpp")
+# Link flags of a host source, after the source on the command line.
+LINK_FLAGS = {"png_decode.cpp": ("-pthread", "-lz")}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -70,16 +74,17 @@ def build(source: str) -> Path:
         compiler, flags, headers = nvcc(), NVCC_FLAGS, HEADERS
     else:
         compiler, flags, headers = cxx(), CXX_FLAGS, ()
+    link = LINK_FLAGS.get(source, ())
     digest = hashlib.sha256(
         src.read_bytes() + b"".join((CSRC / h).read_bytes() for h in headers)
-        + " ".join(flags).encode()
+        + " ".join(flags + link).encode()
     ).hexdigest()[:16]
     out = BUILD_DIR / f"lib{src.stem}_{digest}.so"
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_name(f"{out.name}.{os.getpid()}.{threading.get_ident()}.tmp")
-    cmd = [compiler, *flags, "-o", str(tmp), str(src)]
+    cmd = [compiler, *flags, "-o", str(tmp), str(src), *link]
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError(

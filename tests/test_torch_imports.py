@@ -351,9 +351,23 @@ def test_evaluation_runs_on_the_detectors_device():
 def test_kernel_sources_are_in_the_package():
     from snn_object_detectionddp_tpu_torch.kernels import build
 
-    assert set(build.SOURCES) == {"affine_lif.cu", "lif_scan.cu", "png_unfilter.cpp", "raster.cpp"}
+    assert set(build.SOURCES) == {"affine_lif.cu", "lif_scan.cu", "png_decode.cpp", "raster.cpp"}
     for name in (*build.SOURCES, *build.HEADERS):
         assert (build.CSRC / name).is_file(), name
     text = (build.CSRC / "lif_scan.cu").read_text()
     for entry in ("lif_scan_fwd", "lif_scan_fwd_res", "lif_scan_bwd"):
         assert f'extern "C" int {entry}(' in text
+
+
+def test_png_decoder_exports_its_entry_points():
+    """The one PNG decoder is csrc/png_decode.cpp: the whole-batch entry,
+    the one-buffer entry and the row filters, with no libpng."""
+    import ctypes
+
+    from snn_object_detectionddp_tpu_torch.kernels import build
+
+    text = (build.CSRC / "png_decode.cpp").read_text()
+    for entry in ("snn_decode_batch", "snn_png_decode", "snn_png_unfilter"):
+        assert f"int {entry}(" in text
+        assert hasattr(ctypes.CDLL(str(build.build("png_decode.cpp"))), entry)
+    assert "png.h" not in text and "-lpng" not in build.LINK_FLAGS["png_decode.cpp"]

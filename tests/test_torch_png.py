@@ -1,5 +1,5 @@
 """The port's PNG reader and writer (data/png.py, data/native.py,
-csrc/png_unfilter.cpp) against OpenCV, which the JAX package decodes and
+csrc/png_decode.cpp) against OpenCV, which the JAX package decodes and
 writes its frames with, and against the plain numpy row filters.
 
 Every comparison is exact (uint8 pixels): ``read_rgb`` must give
