@@ -104,13 +104,22 @@ Run from the repository root:  python3 chip_smoke.py
 13. Drives the side pipelines at the same full width on the data phase's
    best.pt and a 480x640 test split with tracks.npy (3 sequences x 9
    frames): prints whether OpenCV is importable; runs the tracker
-   benchmark's command line (eval) as a child for the entire_model and
-   cropped_model methods (exit 0, an import log naming no jax, flax,
-   msgpack, cv2 or yaml module, the aggregate printed); fits the learned
+   benchmark's command line (eval) as a child for the entire_model,
+   cropped_model and optical_flow methods (the last with its default
+   Farneback flow; exit 0, an import log naming no jax, flax, msgpack, cv2
+   or yaml module, the aggregate printed); fits the learned
    flow (PWCLite) on the card and runs one sequence of detector + learned
    flow with the adaptive stride in-process, then the same sequence by the
    cropped_model method, counts zeroed before and read after each: one A1
-   launch per spiking block a detector frame, no other kernel (these two
+   launch per spiking block a detector frame, no other kernel; holds
+   Farneback flow (evals/farneback.py) on the card against the port's CPU
+   run, and against cv2.calcOpticalFlowFarneback where OpenCV is
+   importable (skipped and said so where it is not), on seq_00's frame
+   pairs at 240x320 (at most 0.1% of pixels off by more than 1e-3 px, none
+   by 0.1 px), runs one sequence of detector + Farneback flow with the
+   adaptive stride (counts as above; boxes equal to the same run with the
+   flow on the CPU) and times a 240x320 call (host ms in turns with
+   OpenCV's, profiler device ms, kernel launches a call) (these three
    on best.pt's weights with the class-logit biases at 0, which keep boxes
    at conf 0.3 where the 10-step model keeps none: so the crop program runs
    and boxes are tracked); runs main in mode visualize as a child (with
@@ -2505,6 +2514,162 @@ def check_overlay(img_rgb: np.ndarray, boxes, classes, palette) -> None:
         raise AssertionError(f"the last box {boxes[-1]} lacks its class's colour")
 
 
+FLOW_PX_TOL, FLOW_FRAC_OFF, FLOW_MAX_TOL = 1e-3, 1e-3, 0.1  # px; share of pixels; px
+N_FARNEBACK_ROUNDS, N_FARNEBACK_PER_ROUND = 4, 15  # 240x320 calls timed, in turns with OpenCV's
+N_FARNEBACK_PROFILED = 20
+
+
+def flow_gap(got: np.ndarray, want: np.ndarray) -> tuple[float, float]:
+    """(max |difference| in px, share of pixels off by more than
+    FLOW_PX_TOL in either component) of two (H, W, 2) flows; raises beyond
+    the tolerances."""
+    if got.shape != want.shape or not np.isfinite(got).all():
+        raise AssertionError(f"flow {got.shape} (finite: {np.isfinite(got).all()}) vs {want.shape}")
+    diff = np.abs(got - want).max(-1)
+    worst, off = float(diff.max()), float((diff > FLOW_PX_TOL).mean())
+    if worst > FLOW_MAX_TOL or off > FLOW_FRAC_OFF:
+        raise AssertionError(f"flow differs: max |d| {worst:.3e} px, {off:.3e} of pixels off by "
+                             f"more than {FLOW_PX_TOL} px")
+    return worst, off
+
+
+def cv2_farneback(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """OpenCV's ``calcOpticalFlowFarneback`` at the tracker's parameters,
+    the reference where this machine has OpenCV (the port never needs it)."""
+    cv2 = importlib.import_module("cv2")
+    return cv2.calcOpticalFlowFarneback(a, b, None, 0.5, 3, 15, 3, 5, 1.2, 0)
+
+
+def run_farneback_checks(card, K, KL, n_blocks, det, lively, paths, has_cv2) -> dict:
+    """Phase 13's Farneback flow (evals/farneback.py) on the card: against
+    the port's CPU run (and OpenCV where importable) on seq_00's frame
+    pairs at the 0.5 downsample (240x320), and through the tracker; one
+    sequence of detector + Farneback flow with the adaptive stride, counts
+    zeroed before and read after, whose boxes must equal those of the same
+    run with the flow on the CPU; then times. Returns that run's launches."""
+    from snn_object_detectionddp_tpu_torch.data.color import bgr_to_gray_u8
+    from snn_object_detectionddp_tpu_torch.data.png import read_rgb
+    from snn_object_detectionddp_tpu_torch.data.resize import rescale_u8
+    from snn_object_detectionddp_tpu_torch.evals import flow as flow_mod
+    from snn_object_detectionddp_tpu_torch.evals import legacy
+
+    frames = [read_rgb(p_)[..., ::-1] for p_ in paths]  # BGR, as the tracker reads them
+    small = [rescale_u8(bgr_to_gray_u8(f), 0.5) for f in frames]
+    gaps = {"cpu": [], "cv2": []}
+    for a, b in zip(small[:-1], small[1:]):
+        got = flow_mod.farneback_flow(a, b, device="cuda")
+        gaps["cpu"].append(flow_gap(got, flow_mod.farneback_flow(a, b, device="cpu")))
+        if has_cv2:
+            gaps["cv2"].append(flow_gap(got, cv2_farneback(a, b)))
+    whole = [flow_gap(flow_mod.get_optical_flow(f0, f1, "farneback", 0.5, device="cuda"),
+                      flow_mod.get_optical_flow(f0, f1, "farneback", 0.5, device="cpu"))
+             for f0, f1 in zip(frames[:2], frames[1:3])]
+    h2, w2 = small[0].shape
+
+    def worst(rows):
+        return (f"max |d| {max(r[0] for r in rows):.3e} px, at most {max(r[1] for r in rows):.2e} "
+                f"of pixels off by more than {FLOW_PX_TOL} px")
+
+    print(f"[{card}] Farneback on the card at {h2}x{w2} over {len(small) - 1} frame pairs of "
+          f"seq_00 (gray, the 0.5 downsample): against the port's CPU run {worst(gaps['cpu'])}; "
+          + (f"against cv2.calcOpticalFlowFarneback (OpenCV "
+             f"{sys.modules['cv2'].__version__}) {worst(gaps['cv2'])}" if has_cv2 else
+             "the comparison with cv2.calcOpticalFlowFarneback skipped (OpenCV not installed)")
+          + f"; get_optical_flow(farneback, 0.5) of two BGR frames card vs CPU {worst(whole)}")
+
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    KL.reset_launch_counts()
+    stats = legacy.process_sequence(det, lively, paths, method="optical_flow",
+                                    flow_method="farneback",
+                                    compute_stride=legacy.default_adaptive_stride)
+    torch.cuda.synchronize()
+    launches = dict(K.launch_counts)
+    want = {"affine_lif_fwd": n_blocks * stats["det_count"], "affine_lif_fwd_res": 0,
+            "affine_lif_bwd": 0}
+    if launches != want or any(KL.launch_counts.values()):
+        raise AssertionError(f"Farneback sequence: launches {launches} {dict(KL.launch_counts)}, "
+                             f"want {want} and no scan kernel")
+    if stats["det_count"] + stats["flow_count"] != len(paths) or not stats["flow_count"]:
+        raise AssertionError(f"Farneback sequence: {stats['det_count']} detector + "
+                             f"{stats['flow_count']} flow frames of {len(paths)}")
+    if not all(np.isfinite(d).all() for d in stats["detections"]):
+        raise AssertionError("non-finite tracked boxes")
+    card_flow = legacy.get_optical_flow
+
+    def host_flow(prev, cur, method, downsample, device):
+        return card_flow(prev, cur, method, downsample, device="cpu")
+
+    legacy.get_optical_flow = host_flow
+    try:
+        host = legacy.process_sequence(det, lively, paths, method="optical_flow",
+                                       flow_method="farneback",
+                                       compute_stride=legacy.default_adaptive_stride)
+    finally:
+        legacy.get_optical_flow = card_flow
+    same = (host["stride_list"] == stats["stride_list"]
+            and len(host["detections"]) == len(stats["detections"])
+            and all(np.array_equal(a, b) for a, b in zip(host["detections"], stats["detections"])))
+    if not same:
+        raise AssertionError(f"tracked boxes with the flow on the card differ from the CPU flow's: "
+                             f"strides {stats['stride_list']} vs {host['stride_list']}")
+    print(f"[{card}] process_sequence(optical_flow, flow 'farneback', default_adaptive_stride) "
+          f"over {len(paths)} frames of seq_00: {stats['det_count']} detector + "
+          f"{stats['flow_count']} flow frames, strides {stats['stride_list']}, "
+          f"{sum(len(d) for d in stats['detections'])} tracked boxes (class biases at 0), equal to "
+          f"the same run with the flow on the CPU; A1 launches {launches['affine_lif_fwd']} = "
+          f"{n_blocks} x {stats['det_count']}, no other kernel")
+
+    # times: one call at 240x320, in turns with OpenCV's where importable
+    a, b = small[0], small[1]
+    for _ in range(5):
+        flow_mod.farneback_flow(a, b, device="cuda")
+        if has_cv2:
+            cv2_farneback(a, b)
+    port_ms, cv2_ms = [], []
+    for _ in range(N_FARNEBACK_ROUNDS):
+        for _ in range(N_FARNEBACK_PER_ROUND):
+            t0 = time.perf_counter()
+            flow_mod.farneback_flow(a, b, device="cuda")
+            port_ms.append((time.perf_counter() - t0) * 1e3)
+        for _ in range(N_FARNEBACK_PER_ROUND if has_cv2 else 0):
+            t0 = time.perf_counter()
+            cv2_farneback(a, b)
+            cv2_ms.append((time.perf_counter() - t0) * 1e3)
+    tracker_ms = []
+    for _ in range(N_FARNEBACK_PER_ROUND):
+        t0 = time.perf_counter()
+        flow_mod.get_optical_flow(frames[0], frames[1], "farneback", 0.5, device="cuda")
+        tracker_ms.append((time.perf_counter() - t0) * 1e3)
+    prof = torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                              torch.profiler.ProfilerActivity.CUDA])
+    with prof:
+        for _ in range(N_FARNEBACK_PROFILED):
+            flow_mod.farneback_flow(a, b, device="cuda")
+        torch.cuda.synchronize()
+    rows = kernel_rows(prof)
+    copies = [e for e in rows if e.key.startswith(("Memcpy", "Memset"))]
+    kernels = [e for e in rows if e not in copies]
+    dev_ms = sum(e.self_device_time_total for e in rows) / 1e3 / N_FARNEBACK_PROFILED
+    n_kernels = sum(e.count for e in kernels) / N_FARNEBACK_PROFILED
+    n_copies = sum(e.count for e in copies) / N_FARNEBACK_PROFILED
+    if dev_ms <= 0 or not n_kernels:
+        raise AssertionError("the profiler recorded no Farneback kernel")
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:3]
+    cv2_part = (f"cv2.calcOpticalFlowFarneback on this host ({os.cpu_count()} cores) ms "
+                f"{spread(cv2_ms)}" if has_cv2 else "cv2 not installed: its time not measured")
+    print(f"[{card}] Farneback times at {h2}x{w2}: farneback_flow on the card host ms "
+          f"{spread(port_ms)} a call ({len(port_ms)} calls in {N_FARNEBACK_ROUNDS} rounds, in "
+          f"turns with OpenCV's), device (kernel) ms {dev_ms:.3f} a call (profiler), "
+          f"{n_kernels:.0f} kernel launches and {n_copies:.0f} copies a call; {cv2_part}; the "
+          f"tracker's get_optical_flow(farneback, 0.5) of two {frames[0].shape[0]}x"
+          f"{frames[0].shape[1]} BGR frames (gray, halving, flow, upsampling, copy) ms "
+          f"{spread(tracker_ms)}; the longest kernels: "
+          + ", ".join(f"{e.key[:60]} x{e.count} {e.self_device_time_total / 1e3:.3f} ms"
+                      for e in top))
+    return launches
+
+
 def run_side_pipelines_phase(card, K, KL, n_blocks, scratch) -> dict:
     """Phase 13: the tracker benchmark, the learned flow, the overlays and
     the video at full width, on the data phase's best.pt and a test split
@@ -2557,7 +2722,7 @@ def run_side_pipelines_phase(card, K, KL, n_blocks, scratch) -> dict:
               for k, v in params.items()}
 
     # (3) the tracker benchmark's command line, in child processes
-    for method in ("entire_model", "cropped_model"):
+    for method in ("entire_model", "cropped_model", "optical_flow"):  # the last: Farneback
         proc, imports, wall = run_child("snn_object_detectionddp_tpu_torch.eval",
                                         ["--config", cfg_path, "--method", method, "--weights", best])
         if proc.returncode != 0:
@@ -2636,6 +2801,10 @@ def run_side_pipelines_phase(card, K, KL, n_blocks, scratch) -> dict:
           f"{crop['det_count']} detector frames, {crop['crop_det_count']} of them in the "
           f"{ch}x{cw} window; blended {crop['blended_flops_per_frame'] / 1e9:.3f} GFLOPs a frame; "
           f"A1 launches {crop_launches['affine_lif_fwd']} = {n_blocks} x {crop['det_count']}")
+
+    launches_fb = run_farneback_checks(card, K, KL, n_blocks, det, lively, paths, has_cv2)
+    for k, v in launches_fb.items():
+        launches[k] += v
 
     # (5) mode: visualize, as a child on the same best.pt and test split
     vis_dir = os.path.join(save_dir, "visualizations")

@@ -1,6 +1,6 @@
 """Optical-flow box propagation for the tracker benchmark (evals/legacy.py):
-classical Farneback flow (OpenCV, on the host), a learned flow network
-(:class:`PWCLite`, on the card) and mean-flow box shifting.
+classical Farneback flow and a learned flow network (:class:`PWCLite`),
+both on an explicit device, and mean-flow box shifting.
 
 The port's counterpart of the JAX package's ``evals/flow.py``. The learned
 path (``method="model"``) runs :class:`PWCLite`, a small coarse-to-fine
@@ -10,10 +10,11 @@ PyTorch on an explicit device; its FLOPs per geometry come from
 ``utils/profiling.flops_of``. Its weights are seeded random until
 :meth:`ModelFlow.fit_translations` fits them on synthetic translations.
 
-OpenCV is needed only by :func:`farneback_flow` (``calcOpticalFlowFarneback``
-is a whole algorithm), which imports it inside. The learned path turns
-frames gray, halves them and scales the flow back up with the host
-formulas of ``data/color.py`` and ``data/resize.py``, which equal OpenCV's.
+:func:`farneback_flow` computes OpenCV's ``calcOpticalFlowFarneback`` in
+PyTorch (evals/farneback.py). Both paths turn frames gray and halve them
+with the host formulas of ``data/color.py`` and ``data/resize.py``, which
+equal OpenCV's, and scale the flow back up with OpenCV's float resize. No
+OpenCV is imported.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from torch import nn
 
 from ..data.color import bgr_to_gray_u8, gaussian_blur_f32
 from ..data.resize import rescale_u8, resize_linear_f32
+from . import farneback
 from ..models.detector import resolve_device
 from ..models.layers import _fan_in, conv2d_nhwc, trunc_normal_init
 from ..train.step import Optimizer
@@ -41,8 +43,8 @@ def farneback_flops_per_pixel(
     iterations: int = 3,
     poly_n: int = 5,
 ) -> float:
-    """Derived FLOPs per input pixel of cv2.calcOpticalFlowFarneback at the
-    parameters :func:`farneback_flow` passes (0.5, 3, 15, 3, 5). Per pixel
+    """Derived FLOPs per input pixel of Farneback flow at the parameters
+    :func:`farneback_flow` computes (0.5, 3, 15, 3, 5). Per pixel
     of one pyramid level:
 
     - polynomial expansion, both frames: a ``poly_n``-tap separable
@@ -54,8 +56,9 @@ def farneback_flops_per_pixel(
       (~10 FLOPs);
     - the pyramid at ``pyr_scale`` a level: area series sum(pyr_scale^(2 l)).
 
-    OpenCV's C++ is invisible to a FLOP counter, so this is an operation
-    count, good to tens of percent."""
+    The JAX package derives the same count (OpenCV's C++ is invisible to
+    its FLOP counter), and ``flops_of`` counts no elementwise operation, so
+    this stays an operation count, good to tens of percent."""
     per_level = 36.0 * poly_n + iterations * (30.0 + 20.0 * winsize)
     area = sum(pyr_scale ** (2 * lvl) for lvl in range(levels))
     return per_level * area
@@ -65,27 +68,25 @@ FARNEBACK_FLOPS_PER_PIXEL = farneback_flops_per_pixel()
 
 
 def farneback_flow(
-    prev_gray: np.ndarray, cur_gray: np.ndarray, downsample: float = 1.0
+    prev_gray: np.ndarray, cur_gray: np.ndarray, downsample: float = 1.0,
+    device: str | torch.device = "cuda",
 ) -> np.ndarray:
-    """Dense flow (H, W, 2) by ``cv2.calcOpticalFlowFarneback``; ``downsample``
-    < 1 computes it at reduced resolution and rescales. Needs OpenCV."""
-    try:
-        import cv2
-    except ImportError as e:
-        raise ImportError(
-            "farneback flow needs OpenCV (cv2.calcOpticalFlowFarneback), which is not "
-            "installed; use flow method 'model' or 'no'"
-        ) from e
+    """Dense flow (H, W, 2) of two uint8 gray frames, OpenCV's
+    ``calcOpticalFlowFarneback(prev, cur, None, 0.5, 3, 15, 3, 5, 1.2, 0)``
+    computed on ``device`` (evals/farneback.py). ``downsample`` < 1 computes
+    it at that fraction of the size (OpenCV's ``resize(fx=downsample)``)
+    and scales the field back up (``resize``, divided by ``downsample``)."""
+    dev = resolve_device(device)
     if downsample != 1.0:
-        small_prev = cv2.resize(prev_gray, None, fx=downsample, fy=downsample)
-        small_cur = cv2.resize(cur_gray, None, fx=downsample, fy=downsample)
+        small_prev = rescale_u8(prev_gray, downsample)
+        small_cur = rescale_u8(cur_gray, downsample)
     else:
         small_prev, small_cur = prev_gray, cur_gray
-    flow = cv2.calcOpticalFlowFarneback(small_prev, small_cur, None, 0.5, 3, 15, 3, 5, 1.2, 0)
+    pair = torch.from_numpy(np.stack([small_prev, small_cur])).to(dev)
+    flow = farneback.calc_flow(pair[0], pair[1])
     if downsample != 1.0:
-        flow = cv2.resize(flow, (prev_gray.shape[1], prev_gray.shape[0]))
-        flow /= downsample
-    return flow
+        flow = farneback.resize_linear(flow, prev_gray.shape[:2]) / downsample
+    return flow.permute(1, 2, 0).cpu().numpy()
 
 
 def _warp(feat: torch.Tensor, flow: torch.Tensor) -> torch.Tensor:
@@ -346,14 +347,13 @@ def get_optical_flow(
     downsample: float = 1.0,
     device: str | torch.device = "cuda",
 ) -> np.ndarray | None:
-    """Flow between two BGR (or gray) uint8 frames: None for 'no',
-    Farneback (OpenCV, host) for 'farneback', :class:`PWCLite` on
-    ``device`` for 'model'."""
+    """Flow between two BGR (or gray) uint8 frames on ``device``: None for
+    'no', Farneback for 'farneback', :class:`PWCLite` for 'model'."""
     if method == "no":
         return None
     to_gray = lambda f: bgr_to_gray_u8(f) if f.ndim == 3 else f  # noqa: E731
     if method == "farneback":
-        return farneback_flow(to_gray(prev_frame), to_gray(cur_frame), downsample)
+        return farneback_flow(to_gray(prev_frame), to_gray(cur_frame), downsample, device)
     if method == "model":
         return model_flow(to_gray(prev_frame), to_gray(cur_frame), downsample, device)
     raise ValueError(

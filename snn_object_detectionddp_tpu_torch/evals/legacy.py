@@ -22,7 +22,7 @@ frame to frame) on the detector's device:
 Frames are read by ``data/png.py::read_rgb`` and kept in BGR, the order
 the JAX package reads them in (its flow and drawing see BGR, its model
 RGB). The annotate path draws with ``data/raster.py`` and writes with
-``write_rgb``: no OpenCV, except for the Farneback flow method.
+``write_rgb``; the flow is evals/flow.py's. No OpenCV.
 """
 
 from __future__ import annotations
@@ -167,8 +167,8 @@ def process_sequence(
     new stride``. After each detector frame the IoU between the
     flow-propagated boxes and the fresh detections goes to the hook, whose
     stride schedules the next detector frame; the strides visited are
-    ``stride_list``. ``None`` keeps ``stride``. The learned flow runs on
-    the detector's device."""
+    ``stride_list``. ``None`` keeps ``stride``. The flow (Farneback or the
+    learned one) runs on the detector's device."""
     predict, predict_crop = make_track_fns(detector, params, conf, iou)
 
     detections: list[np.ndarray] = []

@@ -8,7 +8,8 @@ Tolerances: the gray conversion and the uint8 halving are byte-equal
 held to 1e-6; the blur follows OpenCV 5.0.0's float32 order (bit-equal to
 the x86-64 build it was fitted to, held to 1e-6); the warp, cost volume and upsampling match JAX's to
 1e-6, the network's forward to 1e-5 (convs summed in another order), one
-Adam step to 1e-6.
+Adam step to 1e-6; Farneback flow as tests/test_torch_farneback.py holds
+it (at most 0.1% of pixels off by more than 1e-3 px, none by 0.1 px).
 """
 
 import inspect
@@ -191,19 +192,22 @@ def test_boxes_and_farneback_flops_equal_jax():
 
 
 def test_farneback_equals_jax_and_needs_cv2(monkeypatch):
+    """The port computes Farneback itself (evals/farneback.py): it equals
+    the JAX package's (OpenCV) within the tolerances of
+    tests/test_torch_farneback.py and runs with OpenCV blocked."""
     rng = np.random.RandomState(0)
     base = (rng.rand(64, 80) * 255).astype(np.uint8)
     shifted = np.roll(base, 3, axis=1)
-    for ds in (1.0, 0.5):
-        np.testing.assert_array_equal(tflow.farneback_flow(base, shifted, ds),
-                                      jflow.farneback_flow(base, shifted, ds))
     frames = [rng.randint(0, 256, (48, 64, 3)).astype(np.uint8) for _ in range(2)]
-    np.testing.assert_array_equal(
-        tflow.get_optical_flow(*frames, "farneback", 0.5, device="cpu"),
-        jflow.get_optical_flow(*frames, "farneback", 0.5))
+    want = [jflow.farneback_flow(base, shifted, ds) for ds in (1.0, 0.5)]
+    want.append(jflow.get_optical_flow(*frames, "farneback", 0.5))
     monkeypatch.setitem(sys.modules, "cv2", None)
-    with pytest.raises(ImportError, match="calcOpticalFlowFarneback"):
-        tflow.farneback_flow(base, shifted)
+    got = [tflow.farneback_flow(base, shifted, ds, device="cpu") for ds in (1.0, 0.5)]
+    got.append(tflow.get_optical_flow(*frames, "farneback", 0.5, device="cpu"))
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == np.float32
+        diff = np.abs(g - w).max(-1)
+        assert (diff > 1e-3).mean() <= 1e-3 and diff.max() <= 0.1
     with pytest.raises(ValueError, match="not available"):
         tflow.get_optical_flow(*frames, "lucas_kanade", device="cpu")
 

@@ -23,7 +23,8 @@ PARALLEL_MODULES = ("parallel/mesh.py", "train/step.py", "train/loop.py", "train
                     "models/detector.py", "evals/validator.py", "eval_2.py", "serve.py", "main.py")
 # The tracker benchmark, its flow, the overlays, the video, profiling and
 # NaN debugging.
-NEW_MODULES = ("data/color.py", "evals/flow.py", "evals/legacy.py", "eval.py", "video.py",
+NEW_MODULES = ("data/color.py", "evals/flow.py", "evals/farneback.py", "evals/legacy.py",
+               "eval.py", "video.py",
                "viz/__init__.py", "viz/palette.py", "viz/overlay.py", "viz/video.py",
                "utils/profiling.py", "utils/debug.py")
 
@@ -81,7 +82,8 @@ def test_optional_packages_are_imported_lazily(path):
 # has no OpenCV, scikit-learn or tqdm: they may not import them at all.
 DATA_PATH = sorted((PORT / "data").glob("*.py")) + [
     PORT / "main.py", PORT / "eval_2.py", PORT / "evals" / "validator.py", REPO / "chip_smoke.py",
-    PORT / "evals" / "legacy.py", PORT / "eval.py", PORT / "video.py",
+    PORT / "evals" / "legacy.py", PORT / "evals" / "flow.py", PORT / "evals" / "farneback.py",
+    PORT / "eval.py", PORT / "video.py",
     PORT / "utils" / "profiling.py", PORT / "utils" / "debug.py", PARALLEL_SCRIPT]
 
 
@@ -92,7 +94,8 @@ def test_data_path_imports_no_opencv_sklearn_or_tqdm(path):
 
 
 def _imports_by_function(path: Path) -> dict[str, set[str]]:
-    """{enclosing function name (or "<module>"): imported root names}."""
+    """{enclosing function name (or "<module>"): imported root names},
+    ``importlib.import_module("name")`` calls included."""
     found: dict[str, set[str]] = {}
 
     def visit(node, where):
@@ -102,6 +105,10 @@ def _imports_by_function(path: Path) -> dict[str, set[str]]:
                 found.setdefault(where, set()).update(a.name.split(".")[0] for a in child.names)
             elif isinstance(child, ast.ImportFrom) and child.level == 0 and child.module:
                 found.setdefault(where, set()).add(child.module.split(".")[0])
+            elif (isinstance(child, ast.Call) and isinstance(child.func, ast.Attribute)
+                  and child.func.attr == "import_module" and child.args
+                  and isinstance(child.args[0], ast.Constant)):
+                found.setdefault(where, set()).add(str(child.args[0].value).split(".")[0])
             visit(child, here)
 
     visit(ast.parse(path.read_text(), str(path)), "<module>")
@@ -112,8 +119,10 @@ def test_no_yaml_anywhere_and_cv2_only_for_non_png_uploads():
     """The configs are read by utils/yaml_subset.py: nothing of the port
     imports PyYAML, even lazily. OpenCV is reached only where the port has
     no replacement for it: the HTTP endpoint's branch for non-PNG uploads
-    (serve.decode_upload), the overlay's label text (cv2.putText), the MP4
-    writer (cv2.VideoWriter) and Farneback flow."""
+    (serve.decode_upload), the overlay's label text (cv2.putText) and the
+    MP4 writer (cv2.VideoWriter). Farneback flow needs none
+    (evals/farneback.py); chip_smoke.py compares it with OpenCV's where
+    that machine has OpenCV (cv2_farneback)."""
     cv2_sites = []
     for path in SOURCES:
         for where, roots in _imports_by_function(path).items():
@@ -121,7 +130,7 @@ def test_no_yaml_anywhere_and_cv2_only_for_non_png_uploads():
             if "cv2" in roots:
                 cv2_sites.append((path.relative_to(REPO).as_posix(), where))
     assert sorted(cv2_sites) == [
-        ("snn_object_detectionddp_tpu_torch/evals/flow.py", "farneback_flow"),
+        ("chip_smoke.py", "cv2_farneback"),
         ("snn_object_detectionddp_tpu_torch/serve.py", "decode_upload"),
         ("snn_object_detectionddp_tpu_torch/viz/overlay.py", "_put_label"),
         ("snn_object_detectionddp_tpu_torch/viz/video.py", "frames_to_video"),

@@ -100,6 +100,7 @@ CASES = {
     "cropped_model": dict(method="cropped_model"),
     "optical_flow_model": dict(method="optical_flow", stride=3, flow_method="model"),
     "optical_flow_no": dict(method="optical_flow", stride=2, flow_method="no"),
+    "optical_flow_farneback": dict(method="optical_flow", stride=3, flow_method="farneback"),
     "adaptive": dict(method="optical_flow", stride=1, flow_method="model", compute_stride=_hook),
 }
 
@@ -127,8 +128,9 @@ def test_process_sequence_matches_jax(case, models, frames):
 
 def test_process_dataset_matches_jax(models, tmp_path):
     """A written 1-sequence test split with tracks.npy, optical flow
-    (Farneback, OpenCV on the host) every other frame: the same quality
-    metrics (the generator's 3 classes; the metrics ignore the class)."""
+    (Farneback: the port's own against OpenCV's) every other frame: the
+    same quality metrics (the generator's 3 classes; the metrics ignore
+    the class)."""
     jdet, jparams, tdet, tparams = models
     jax_make_dataset(tmp_path / "ds", num_sequences=1, splits=("test",), num_frames=5,
                      height=64, width=96)
