@@ -42,6 +42,7 @@ from ..parallel.mesh import (
     spatial_sum,
     tensor_parallel,
 )
+from ..utils.profiling import span
 from .backbone import SpikingBackbone, preset_channels
 from .detect import DetectHead, decode_predictions
 from .lif import LIFParams
@@ -72,15 +73,18 @@ class SNNTemporalDetector(nn.Module):
         state = state or {}
         sg = current_spatial_group()
         rows = None if sg is None else sg.height
-        feats, bstate = self.backbone(frames_t, state.get("backbone"), rows=rows)
+        with span("model.backbone"):
+            feats, bstate = self.backbone(frames_t, state.get("backbone"), rows=rows)
         p3_rows = None if rows is None else -(-self.backbone.stem_rows(rows) // 2)
-        refined, ustate = self.unet(feats, state.get("unet"), all_steps=all_steps,
-                                    state_only=state_only, rows=p3_rows)
+        with span("model.unet"):
+            refined, ustate = self.unet(feats, state.get("unet"), all_steps=all_steps,
+                                        state_only=state_only, rows=p3_rows)
         new_state = {"backbone": bstate, "unet": ustate}
         if state_only:
             return None, new_state
         up = self.unet.decoder_rows(p3_rows)
-        return self.head(list(refined), rows=(up[6], up[5], up[4])), new_state
+        with span("model.head"):
+            return self.head(list(refined), rows=(up[6], up[5], up[4])), new_state
 
 
 def set_tf32_policy(precision: str) -> None:

@@ -22,6 +22,7 @@ import torch
 from torch import nn
 
 from ..parallel.mesh import full_channels
+from ..utils.profiling import span
 from .convlstm import ConvLSTM2d
 from .layers import (
     ConvBlock,
@@ -105,15 +106,16 @@ class TemporalUNet(nn.Module):
         )
         d3, new_state["down3"] = self.down3(x3, state.get("down3"), rows=r5)
 
-        if self.bottleneck_kind in ("convlstm", "lstm"):
-            bott_seq, new_state["bottleneck"] = self.bottleneck(d3, state.get("bottleneck"),
-                                                                rows=r6)
-        else:  # "lif": membrane potential is the recurrence
-            spikes, v_final, *rb = self.bottleneck(
-                d3, state.get("bottleneck"), with_readouts=all_steps, rows=r6
-            )
-            new_state["bottleneck"] = v_final
-            bott_seq = None if all_steps else membrane_readout(spikes, v_final, self.lif)
+        with span("model.bottleneck"):
+            if self.bottleneck_kind in ("convlstm", "lstm"):
+                bott_seq, new_state["bottleneck"] = self.bottleneck(
+                    d3, state.get("bottleneck"), rows=r6)
+            else:  # "lif": membrane potential is the recurrence
+                spikes, v_final, *rb = self.bottleneck(
+                    d3, state.get("bottleneck"), with_readouts=all_steps, rows=r6
+                )
+                new_state["bottleneck"] = v_final
+                bott_seq = None if all_steps else membrane_readout(spikes, v_final, self.lif)
 
         if state_only:
             return None, new_state

@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import count
 from .boxes import EPS, box_area, pairwise_iou
 
 # Class-offset used for class-aware suppression (larger than any image dim).
@@ -56,6 +57,7 @@ def _fixed_point(sup: torch.Tensor, valid: torch.Tensor) -> torch.Tensor:
     keep = valid
     while True:
         new = sweep(keep)
+        count("nms.sweeps")  # each sweep is a host sync (torch.equal)
         if torch.equal(new, keep):
             return keep
         keep = new

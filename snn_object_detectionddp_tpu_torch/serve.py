@@ -39,7 +39,23 @@ Endpoints (JSON):
   POST /detect  {"stream": "cam0", "images": [<base64>, ...]}   (clip)
       -> {"frames": [{boxes,scores,classes}, ...], "latency_ms", "chunks"}
   POST /reset   {"stream": "cam0"}   -> {"ok": true}
-  GET  /healthz -> {"ok": true, "streams": N, "backend": "cuda"}
+  GET  /healthz -> {"ok": true, "streams": N, "backend": "cuda", "counters": {...}}
+      (``utils.profiling.counters()``: the serving counters ``serve.requests``,
+      ``serve.dispatches``, ``serve.padded_slots``, ``serve.deferred``,
+      ``serve.cancelled``, ``serve.overloaded``, NMS's ``nms.sweeps`` and the
+      hand kernels' launches, since the process started)
+
+Tracing (``utils/profiling.py``; recorded only while a profiler records or
+after ``profiling.enable()``): each request's ``serve.request`` (submit to
+reply, id = the request's id) and ``serve.queue_wait`` (submit to the start
+of its dispatch, attr ``dispatch``: the dispatch's number in this service);
+the worker's ``serve.take`` and ``serve.dispatch`` (attrs ``dispatch``,
+``n``, ``k``, ``clip``) with the children ``serve.gather``,
+``serve.state_stack``, ``serve.upload``, ``serve.forward``,
+``serve.device_wait`` (the worker's wait for the forward's kernels),
+``serve.nms`` (decode and NMS, each sweep a host sync; attr ``sweeps``),
+``serve.fetch`` (the copy of NMS's results to the host),
+``serve.state_split`` and ``serve.reply``.
 
 Run: python -m snn_object_detectionddp_tpu_torch.serve --config scripts/hard_nano.yaml \
         --weights fixtures/hard_nano_ckpt.pt --port 8000
@@ -73,6 +89,7 @@ from .parallel.mesh import (
     process_device,
     tp_shard_params,
 )
+from .utils.profiling import count, counter, counters, new_id, record, span
 
 
 def tree_map(fn, *trees):
@@ -97,6 +114,7 @@ class _Job:
     # drops the job at admission instead of advancing the stream's state
     # with a result nobody reads.
     cancelled: threading.Event = field(default_factory=threading.Event)
+    id: int = 0  # the request's id, shared by its spans (set by _submit)
 
 
 # Serving runs on one device or a 1 x tensor mesh, as the JAX package's does.
@@ -188,13 +206,22 @@ class DetectionService:
         return diffs[0]
 
     def _detections(self, raw) -> dict[str, np.ndarray]:
-        boxes, scores = decode_predictions(
-            raw, self.detector.cfg.model.hyp.reg_max,
-            self.detector.cfg.model.num_classes, image_hw=self.image_hw,
-        )
-        out = batched_nms(boxes, scores, conf_thres=self.conf,
-                          iou_thres=self.iou, max_det=self.max_det)
-        return {k: v.cpu().numpy() for k, v in out.items()}
+        with span("serve.device_wait"):
+            # NMS's first sweep would wait here anyway (torch.equal): the
+            # wait is taken on its own, so serve.nms times NMS alone
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+        with span("serve.nms") as sp:
+            sweeps = counter("nms.sweeps")
+            boxes, scores = decode_predictions(
+                raw, self.detector.cfg.model.hyp.reg_max,
+                self.detector.cfg.model.num_classes, image_hw=self.image_hw,
+            )
+            out = batched_nms(boxes, scores, conf_thres=self.conf,
+                              iou_thres=self.iou, max_det=self.max_det)
+            sp.set(sweeps=counter("nms.sweeps") - sweeps)
+        with span("serve.fetch"):
+            return {k: v.cpu().numpy() for k, v in out.items()}
 
     def _predict(self, images_u8: np.ndarray, rec_states: tuple, decode: bool = True):
         """(K, H, W, 3) images of K streams + their K B=1 states ->
@@ -202,29 +229,35 @@ class DetectionService:
         if len(rec_states) == 1:
             rec_state = rec_states[0]
         else:
-            rec_state = tree_map(
-                lambda ax, *xs: torch.cat(xs, ax), self._state_axes, *rec_states
-            )
-        imgs = torch.from_numpy(images_u8).to(self.device)
-        frames = preprocess_video(imgs[:, None], dtype=self.detector.dtype)
-        raw, new_state = self.detector.apply(self.params, frames, rec_state, mesh=self.mesh)
+            with span("serve.state_stack"):
+                rec_state = tree_map(
+                    lambda ax, *xs: torch.cat(xs, ax), self._state_axes, *rec_states
+                )
+        with span("serve.upload"):
+            imgs = torch.from_numpy(images_u8).to(self.device)
+            frames = preprocess_video(imgs[:, None], dtype=self.detector.dtype)
+        with span("serve.forward"):
+            raw, new_state = self.detector.apply(self.params, frames, rec_state, mesh=self.mesh)
         out = self._detections(raw) if decode else None
         if len(rec_states) == 1:
             return out, (new_state,)
         # clone: a per-stream slice must not pin the whole batch's buffer.
-        return out, tuple(
-            tree_map(lambda ax, x, i=i: x.narrow(ax, i, 1).clone(),
-                     self._state_axes, new_state)
-            for i in range(len(rec_states))
-        )
+        with span("serve.state_split"):
+            return out, tuple(
+                tree_map(lambda ax, x, i=i: x.narrow(ax, i, 1).clone(),
+                         self._state_axes, new_state)
+                for i in range(len(rec_states))
+            )
 
     def _predict_clip(self, images_u8: np.ndarray, rec_state, decode: bool = True):
         """(T, H, W, 3) frames of one stream -> (host detections with one
         row per frame, or None without ``decode``, new state)."""
-        imgs = torch.from_numpy(images_u8).to(self.device)
-        frames = preprocess_video(imgs[None], dtype=self.detector.dtype)
-        raw, new_state = self.detector.apply(self.params, frames, rec_state,
-                                             all_steps=True, mesh=self.mesh)
+        with span("serve.upload"):
+            imgs = torch.from_numpy(images_u8).to(self.device)
+            frames = preprocess_video(imgs[None], dtype=self.detector.dtype)
+        with span("serve.forward"):
+            raw, new_state = self.detector.apply(self.params, frames, rec_state,
+                                                 all_steps=True, mesh=self.mesh)
         return (self._detections(raw) if decode else None), new_state
 
     def _clip_chain(self, images_u8: np.ndarray, state, decode: bool = True):
@@ -346,6 +379,7 @@ class DetectionService:
     def _submit(self, job: _Job) -> dict:
         if not (self._started and self._worker.is_alive()):
             raise RuntimeError("detection worker is not running")
+        job.id = new_id()
         self._q.put(job)
         # Bounded wait + liveness check: a crashed worker surfaces as an
         # error to the caller, never a forever-blocked handler.
@@ -393,6 +427,7 @@ class DetectionService:
                 if first is None:
                     return None
             if first.cancelled.is_set():
+                count("serve.cancelled")
                 first = None
         if first.clip:
             return [first]  # a clip occupies the whole dispatch
@@ -402,6 +437,7 @@ class DetectionService:
         while i < len(self._deferred):
             d = self._deferred[i]
             if d.cancelled.is_set():
+                count("serve.cancelled")
                 self._deferred.pop(i)
                 continue
             if d.clip or d.stream in streams or len(jobs) >= self.max_batch:
@@ -420,6 +456,7 @@ class DetectionService:
                 self._q.put(None)  # re-post: stop after this batch
                 break
             if nxt.cancelled.is_set():
+                count("serve.cancelled")
                 continue
             if nxt.clip or nxt.stream in streams:
                 # Backpressure: _deferred is outside the bounded queue, so
@@ -428,12 +465,14 @@ class DetectionService:
                     sum(1 for d in self._deferred if d.stream == nxt.stream)
                     >= self._max_deferred_per_stream
                 ):
+                    count("serve.overloaded")
                     nxt.reply.put(RuntimeError(
                         f"stream '{nxt.stream}' overloaded: requests chain "
                         "serially through its recurrent state; slow down or "
                         "use distinct streams"
                     ))
                 else:
+                    count("serve.deferred")
                     self._deferred.append(nxt)
                     streams.add(nxt.stream)
             else:
@@ -460,8 +499,10 @@ class DetectionService:
     def _run(self):
         if self.device.index is not None and self.device.type == "cuda":
             torch.cuda.set_device(self.device)  # this thread's card: a rank's collectives
+        dispatch = 0
         while True:
-            jobs = self._next_jobs()
+            with span("serve.take"):
+                jobs = self._next_jobs()
             if jobs is None:
                 self._tell("stop")
                 # Answer anything still queued so no caller blocks on a
@@ -478,38 +519,61 @@ class DetectionService:
                 for j in leftovers:
                     j.reply.put(RuntimeError("service stopped"))
                 return
+            dispatch += 1
+            n, clip = len(jobs), jobs[0].clip
+            k = 1 if clip else next(s for s in self.batch_sizes if s >= n)
+            count("serve.dispatches")
+            count("serve.requests", n)
+            count("serve.padded_slots", k - n)
             try:
-                if jobs[0].clip:
-                    self._run_clip(jobs[0])
-                    continue
-                n = len(jobs)
-                k = next(s for s in self.batch_sizes if s >= n)
-                with self._state_lock:
-                    self._prune_gen_locked({j.stream for j in jobs})
-                    entries = [(self._states.get(j.stream), self._gen.get(j.stream, 0))
-                               for j in jobs]
-                states = [s if s is not None else self._zero_state1 for s, _ in entries]
-                states += [self._zero_state1] * (k - n)  # padded slots
-                images = np.zeros((k, *self.image_hw, 3), np.uint8)
-                for i, j in enumerate(jobs):
-                    images[i] = j.image_u8
-                self._tell("batch", images=images,
-                           slots=[j.stream if s is not None else None
-                                  for j, (s, _) in zip(jobs, entries)] + [None] * (k - n),
-                           commit=[j.stream for j in jobs])
-                host, new_states = self._predict(images, tuple(states))
-                with self._state_lock:
-                    for j, st, (_, gen0) in zip(jobs, new_states[:n], entries):
-                        self._commit_locked(j.stream, gen0, st)
-                now = time.perf_counter()
-                for i, j in enumerate(jobs):
-                    reply = self._frame_reply(host, i)
-                    reply["latency_ms"] = round((now - j.t0) * 1e3, 2)
-                    reply["batch"] = n
-                    j.reply.put(reply)
+                with span("serve.dispatch", dispatch=dispatch, n=n, k=k, clip=clip):
+                    started = (dispatch, time.perf_counter_ns())
+                    if clip:
+                        self._run_clip(jobs[0], started)
+                    else:
+                        self._run_batch(jobs, k, started)
             except Exception as e:  # surface to the callers, keep serving
                 for j in jobs:
                     j.reply.put(e)
+
+    @staticmethod
+    def _record_request(job: _Job, started: tuple) -> None:
+        """The request's spans, once its reply is put: ``serve.queue_wait``
+        up to the start of its dispatch ``started`` = (dispatch number,
+        start ns), and ``serve.request``."""
+        t0 = round(job.t0 * 1e9)
+        record("serve.queue_wait", t0, started[1], parent=job.id, dispatch=started[0])
+        record("serve.request", t0, time.perf_counter_ns(), id=job.id)
+
+    def _run_batch(self, jobs: list, k: int, started: tuple) -> None:
+        """One dispatch of ``len(jobs)`` streams' frames at padded size ``k``."""
+        n = len(jobs)
+        with span("serve.gather"):
+            with self._state_lock:
+                self._prune_gen_locked({j.stream for j in jobs})
+                entries = [(self._states.get(j.stream), self._gen.get(j.stream, 0))
+                           for j in jobs]
+            states = [s if s is not None else self._zero_state1 for s, _ in entries]
+            states += [self._zero_state1] * (k - n)  # padded slots
+            images = np.zeros((k, *self.image_hw, 3), np.uint8)
+            for i, j in enumerate(jobs):
+                images[i] = j.image_u8
+            self._tell("batch", images=images,
+                       slots=[j.stream if s is not None else None
+                              for j, (s, _) in zip(jobs, entries)] + [None] * (k - n),
+                       commit=[j.stream for j in jobs])
+        host, new_states = self._predict(images, tuple(states))
+        with span("serve.reply"):
+            with self._state_lock:
+                for j, st, (_, gen0) in zip(jobs, new_states[:n], entries):
+                    self._commit_locked(j.stream, gen0, st)
+            now = time.perf_counter()
+            for i, j in enumerate(jobs):
+                reply = self._frame_reply(host, i)
+                reply["latency_ms"] = round((now - j.t0) * 1e3, 2)
+                reply["batch"] = n
+                j.reply.put(reply)
+                self._record_request(j, started)
 
     @staticmethod
     def _frame_reply(host: dict, r: int) -> dict:
@@ -520,25 +584,29 @@ class DetectionService:
             "classes": host["classes"][r][valid].tolist(),
         }
 
-    def _run_clip(self, job: _Job) -> None:
+    def _run_clip(self, job: _Job, started: tuple) -> None:
         """One clip job: greedy chain of chunks (largest first), state
         carried across chunks on the device."""
-        with self._state_lock:
-            self._prune_gen_locked({job.stream})
-            st = self._states.get(job.stream)
-            gen0 = self._gen.get(job.stream, 0)
-        state = st if st is not None else self._zero_state1
-        self._tell("clip", images=job.image_u8, stream=job.stream, stored=st is not None)
+        with span("serve.gather"):
+            with self._state_lock:
+                self._prune_gen_locked({job.stream})
+                st = self._states.get(job.stream)
+                gen0 = self._gen.get(job.stream, 0)
+            state = st if st is not None else self._zero_state1
+            self._tell("clip", images=job.image_u8, stream=job.stream, stored=st is not None)
         hosts, state = self._clip_chain(job.image_u8, state)
-        with self._state_lock:
-            self._commit_locked(job.stream, gen0, state)
-        now = time.perf_counter()
-        frames = [self._frame_reply(h, r) for h in hosts for r in range(h["valid"].shape[0])]
-        job.reply.put({
-            "frames": frames,
-            "latency_ms": round((now - job.t0) * 1e3, 2),
-            "chunks": len(hosts),
-        })
+        with span("serve.reply"):
+            with self._state_lock:
+                self._commit_locked(job.stream, gen0, state)
+            now = time.perf_counter()
+            frames = [self._frame_reply(h, r) for h in hosts
+                      for r in range(h["valid"].shape[0])]
+            job.reply.put({
+                "frames": frames,
+                "latency_ms": round((now - job.t0) * 1e3, 2),
+                "chunks": len(hosts),
+            })
+            self._record_request(job, started)
 
 
 class _BadUpload(ValueError):
@@ -588,7 +656,7 @@ def make_handler(service: DetectionService):
         def do_GET(self):
             if self.path == "/healthz":
                 self._json(200, {"ok": True, "streams": service.num_streams,
-                                 "backend": service.device.type})
+                                 "backend": service.device.type, "counters": counters()})
             else:
                 self._json(404, {"error": "unknown path"})
 

@@ -69,6 +69,7 @@ from ..parallel.mesh import (
     sharded_norm,
     spatial_rows,
 )
+from ..utils.profiling import span
 from .schedule import onecycle_lr
 
 ADAM_B1, ADAM_B2, ADAM_EPS = 0.9, 0.999, 1e-8
@@ -373,17 +374,21 @@ def make_step_fns(
         )
 
     def _grads_of(params, batch):
-        leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
-        lc = _loss(leaves, batch)
-        names = list(leaves)
-        got = torch.autograd.grad(lc.total, [leaves[k] for k in names], allow_unused=True)
-        # contiguous: a conv weight's gradient may come back channels-last,
-        # and the clip's norm sums each tensor in memory order (global_norm)
-        grads = {
-            k: torch.zeros_like(params[k]) if g is None else g.contiguous()
-            for k, g in zip(names, got)
-        }
-        return grads, LossComponents(*(torch.as_tensor(x).detach() for x in lc))
+        with span("train.forward"):
+            leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+            lc = _loss(leaves, batch)
+        with span("train.backward"):
+            names = list(leaves)
+            got = torch.autograd.grad(lc.total, [leaves[k] for k in names], allow_unused=True)
+            # contiguous: a conv weight's gradient may come back channels-last,
+            # and the clip's norm sums each tensor in memory order (global_norm)
+            grads = {
+                k: torch.zeros_like(params[k]) if g is None else g.contiguous()
+                for k, g in zip(names, got)
+            }
+            out = LossComponents(*(torch.as_tensor(x).detach() for x in lc))
+            del lc  # the autograd graph is freed here, inside the span
+            return grads, out
 
     layout = (shard_layout(dict(detector.module.named_parameters()), mesh.size)
               if fsdp else None)
@@ -393,9 +398,18 @@ def make_step_fns(
         return all_reduce_spatial(grads, mesh, skip=whole_on_every_rank)
 
     def train_step(state: dict, batch: dict):
-        batch = _to_device(batch)
+        with span("train.step", step=state["step"]):
+            return _train_step(state, batch)
+
+    def _train_step(state: dict, batch: dict):
+        with span("train.upload"):
+            batch = _to_device(batch)
         params = state["params"]
-        full = gather_params(params, layout, mesh) if fsdp else params
+        if fsdp:
+            with span("train.collective"):
+                full = gather_params(params, layout, mesh)
+        else:
+            full = params
         if grad_accum > 1:
             k = grad_accum
             b = batch["images"].shape[0]
@@ -417,19 +431,21 @@ def make_step_fns(
         else:
             grads, lc = _grads_of(full, batch)
         del full
-        grads = _reduce_spatial(grads)
-        sched = state["sched"]
-        lr = onecycle_lr(state["step"], *sched)
         # Each process holds d(global loss)/d(params) over its own batch:
         # their sum is the whole gradient.
-        if fsdp:
-            grads = reduce_scatter_grads(grads, layout, mesh)
-            norm_fn = partial(sharded_norm, mesh=mesh)
-        else:
-            grads = all_reduce_grads(grads, mesh)
-            norm_fn = global_norm
-        grad_norm = norm_fn(grads.values())
-        opt_state = tx.update(grads, state["opt_state"], params, lr, norm_fn=norm_fn)
+        norm_fn = partial(sharded_norm, mesh=mesh) if fsdp else global_norm
+        if mesh is not None:
+            with span("train.collective"):
+                grads = _reduce_spatial(grads)
+                if fsdp:
+                    grads = reduce_scatter_grads(grads, layout, mesh)
+                else:
+                    grads = all_reduce_grads(grads, mesh)
+        with span("train.optimizer"):
+            sched = state["sched"]
+            lr = onecycle_lr(state["step"], *sched)
+            grad_norm = norm_fn(grads.values())
+            opt_state = tx.update(grads, state["opt_state"], params, lr, norm_fn=norm_fn)
         new_state = {
             "params": params,
             "opt_state": opt_state,

@@ -31,6 +31,7 @@ from snn_object_detectionddp_tpu_torch.convert import params_from_jax
 from snn_object_detectionddp_tpu_torch.models.detector import Detector as TDetector
 from snn_object_detectionddp_tpu_torch.ops import nms as tnms
 from snn_object_detectionddp_tpu_torch.utils import export as texport
+from snn_object_detectionddp_tpu_torch.utils import profiling
 
 SCORE_ATOL, BOX_ATOL = 1e-5, 1e-3
 STATE_ATOL = 1e-4  # membranes and the ConvLSTM's (h, c), fp32
@@ -60,15 +61,22 @@ def programs(tmp_path_factory):
     tdet = TDetector.from_config(_tiny(tconfig), device="cpu")
     tparams = params_from_jax(jax.tree.map(np.asarray, jparams), "cpu")
     out = tmp_path_factory.mktemp("export")
-    batch_path = texport.export_serving(tdet, tparams, out / "model.pt2", batch=1, conf=0.0)
-    init_path, step_path = texport.export_streaming(
-        tdet, tparams, out / "init.pt2", out / "step.pt2", batch=1, conf=0.0,
-        max_det=STREAM_MAX_DET)
+    profiling.reset()
+    profiling.enable()  # spans on: export must trace none of them
+    try:
+        batch_path = texport.export_serving(tdet, tparams, out / "model.pt2", batch=1, conf=0.0)
+        init_path, step_path = texport.export_streaming(
+            tdet, tparams, out / "init.pt2", out / "step.pt2", batch=1, conf=0.0,
+            max_det=STREAM_MAX_DET)
+    finally:
+        profiling.disable()
+    spans_while_exporting = profiling.spans()
+    profiling.reset()
     rng = np.random.RandomState(0)
     return dict(
         jdet=jdet, jparams=jparams, tdet=tdet, tparams=tparams,
         batch=texport.load_serving(batch_path), init=texport.load_serving(init_path),
-        step=texport.load_serving(step_path),
+        step=texport.load_serving(step_path), spans_while_exporting=spans_while_exporting,
         clip=rng.randint(0, 255, size=(1, 2, 64, 64, 3), dtype=np.uint8),
         frames=[rng.randint(0, 255, size=(1, 64, 64, 3), dtype=np.uint8) for _ in range(3)],
     )
@@ -148,6 +156,15 @@ def _chain_pool(k):
 class _NMS(torch.nn.Module):
     def forward(self, boxes, scores):
         return tnms.batched_nms(boxes, scores, conf_thres=0.2, iou_thres=0.4, max_det=40)
+
+
+def test_spans_are_no_ops_while_exporting(programs):
+    """The three exports ran with tracing on: no span was recorded while
+    ``torch.export`` traced, and no program holds a profiler operator."""
+    assert programs["spans_while_exporting"] == []
+    for name in ("batch", "init", "step"):
+        graph = str(programs[name].exported.graph)
+        assert "record_function" not in graph and "profiler" not in graph, name
 
 
 def test_nms_export_form_equals_the_eager_fixed_point():

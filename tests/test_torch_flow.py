@@ -225,25 +225,28 @@ def test_flops_of_counts_convs_and_flow_scales_with_area():
 
 
 def test_profiling_helpers(tmp_path):
-    """``trace`` writes a Chrome/Perfetto JSON of the block's operators;
-    ``device_memory_stats`` has one entry per card (none here: CPU);
-    ``Stopwatch`` splits retrieval from compute."""
+    """``trace`` writes a Chrome/Perfetto JSON of the block's operators
+    with the tracer's spans merged in, and ``gaps.json``; the tracer
+    records only while the profiler (or ``enable``) is on."""
     import json
 
-    from snn_object_detectionddp_tpu_torch.utils.profiling import (
-        Stopwatch, device_memory_stats, trace)
+    from snn_object_detectionddp_tpu_torch.utils import profiling
 
-    with trace(tmp_path / "prof") as prof:
-        torch.nn.functional.conv2d(torch.ones(1, 1, 8, 8), torch.ones(2, 1, 3, 3))
-    events = json.loads((tmp_path / "prof/trace.json").read_text())["traceEvents"]
-    assert any("conv" in e.get("name", "") for e in events)
-    assert any("conv" in e.key for e in prof.key_averages())
-    assert len(device_memory_stats()) == torch.cuda.device_count()
-    sw = Stopwatch()
-    with sw.measure("retrieval"):
+    profiling.reset()
+    with profiling.span("before"):
         pass
-    with sw.measure("compute"):
-        sum(range(10000))
-    rep = sw.fps_report(4)
-    assert sw.counts == {"retrieval": 1, "compute": 1}
-    assert rep["num_frames"] == 4 and rep["fps_excl_retrieval"] >= rep["fps_incl_retrieval"] > 0
+    with profiling.trace(tmp_path / "prof") as prof:
+        with profiling.span("conv.phase", layer=1):
+            torch.nn.functional.conv2d(torch.ones(1, 1, 8, 8), torch.ones(2, 1, 3, 3))
+    with profiling.span("after"):
+        pass
+    try:
+        events = json.loads((tmp_path / "prof/trace.json").read_text())["traceEvents"]
+        assert any("conv" in e.get("name", "") for e in events)
+        assert any("conv" in e.key for e in prof.key_averages())
+        (merged,) = [e for e in events if e.get("cat") == "program_span"]
+        assert merged["name"] == "conv.phase" and merged["args"]["layer"] == 1
+        assert [s["name"] for s in profiling.spans()] == ["conv.phase"]
+        assert (tmp_path / "prof/gaps.json").exists()
+    finally:
+        profiling.reset()

@@ -197,6 +197,8 @@ def test_http_surface(service):
         with urllib.request.urlopen(f"{base}/healthz", timeout=60) as r:
             health = json.loads(r.read())
         assert health["ok"] and health["backend"] == "cpu"
+        assert health["counters"]["serve.requests"] >= 2
+        assert "affine_lif_fwd.launches" in health["counters"]
         req = urllib.request.Request(f"{base}/reset", json.dumps({"stream": "http"}).encode())
         with urllib.request.urlopen(req, timeout=60) as r:
             assert json.loads(r.read()) == {"ok": True}
