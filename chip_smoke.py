@@ -18,7 +18,12 @@ Run from the repository root:  python3 chip_smoke.py
    inside the one launch, with no fold in the wrapper); and the
    plain LIF scan's forward (B1), residual-saving forward (B2) and
    backward (B3) at the same 20 shapes taken as (T, B*H*W*C), plus odd
-   sizes, every output bit for bit.
+   sizes, every output bit for bit; and the token-LSTM scan's forward
+   (C1), residual-saving forward (C2) and reverse scan (C3) at hidden 1024
+   (the training window T=5 B=16 at 8x10, a served frame at B=1 and 16)
+   and at two batch tiles of odd sizes, cell by cell against their plain
+   versions within tests/test_torch_token_lstm_kernel.py's limits, with
+   its planted faults outside them and two launches bit for bit.
 3. Drives the serving path — the streaming detection service at full width
    (default Config: yolo11m, 480x640, s2d4 stem, ConvLSTM, bf16, seeded
    random weights) — through DetectionService: 3 streams x 3 frames
@@ -44,7 +49,8 @@ Run from the repository root:  python3 chip_smoke.py
    the CPU on the same candidates; a small fp32 input card against CPU.
 8. Serves the full-width token-LSTM-bottleneck model (hidden 1024, 80
    tokens) to two streams through DetectionService, against the same
-   streams served alone.
+   streams served alone: one C1 launch a forward and no plain scan; then
+   trains it for 3 steps (T=5, B=2): one C2 and one C3 launch a step.
 9. Times each kernel beside its byte bound and its plain version (device
    time only; host enqueue is hidden and checked to be hidden): A1 per
    served frame (T=1, B=1) beside the cost of 20 launches of a kernel that
@@ -55,7 +61,11 @@ Run from the repository root:  python3 chip_smoke.py
    latency over 300 requests, the device (kernel) time of a B=1 step
    from the profiler, the train step (host clock, profiler kernel
    time with the A2/A3 shares, peak memory), an evaluation batch split
-   into model and NMS, and a frame of the token-LSTM model.
+   into model and NMS, and a frame of the token-LSTM model; C1-C3 at the
+   training window and the served shapes beside their bound and their
+   plain versions' device time, and the token-LSTM bottleneck's device
+   time a training window (forward and backward) with the kernels and with
+   the plain loop.
 10. Drives the data pipeline and the two command lines at the same full
    width: a DSEC-shaped tree written by the port's generator (3 sequences
    x 9 frames, 480x640), read_rgb (the C++ decoder, csrc/png_decode.cpp)
@@ -273,6 +283,12 @@ LSTM_SCORE_ATOL = 1e-2
 # parent code too (scripts/torch_lstm_batch_counts.py, both trees under
 # the bf16 TF32 policy).
 LSTM_COUNT_SLACK = 5
+LSTM_HIDDEN = 1024  # every preset's bottleneck at width 1
+# (T, B, N): the training cell's window (8x10 tokens), a served frame alone
+# and a full dispatch of 16.
+LSTM_SHAPES = ((T_TRAIN, 16, 80), (1, 1, 80), (1, 16, 80))
+BF16_FLOPS = 989e12  # H100 SXM dense bf16
+N_LSTM_STEPS = 3  # train steps of the token-LSTM model counted
 SPATIAL_SIZES = (2, 4, 8)  # spatial groups whose row shards phase 16 holds the kernels at
 N_DP_STEPS = 3  # data-parallel steps held bit for bit against the library step
 N_ALLREDUCE_REPS = 20  # gradient all-reduces timed
@@ -1132,13 +1148,16 @@ def run_eval_slice(card, K, det, params, det_gpu, det_cpu, n_blocks, rng) -> Non
           f"{spread(nms_ms)}; whole predict with the copy to the host ms {spread(total_ms)}")
 
 
-def run_lstm_serving(card, K, n_blocks, rng) -> None:
+def run_lstm_serving(card, K, n_blocks, rng) -> int:
     """The token-LSTM-bottleneck model at full width (hidden 1024, 80
     tokens at 8x10) through DetectionService: two streams micro-batched,
-    against the same streams served alone."""
+    against the same streams served alone; one token_lstm_fwd launch a
+    forward and no plain scan. Returns the token_lstm_fwd launches."""
     from snn_object_detectionddp_tpu_torch.config import Config
+    from snn_object_detectionddp_tpu_torch.kernels import token_lstm as KT
     from snn_object_detectionddp_tpu_torch.models.detector import Detector
     from snn_object_detectionddp_tpu_torch.serve import DetectionService, _Job
+    from snn_object_detectionddp_tpu_torch.utils import profiling
 
     cfg = Config()
     cfg.model.bottleneck = "lstm"
@@ -1162,6 +1181,8 @@ def run_lstm_serving(card, K, n_blocks, rng) -> None:
         for s in jobs:
             svc._q.put(jobs[s][i])
     K.reset_launch_counts()
+    KT.reset_launch_counts()
+    plain0 = profiling.counter("token_lstm.plain_scans")
     svc.start()
     try:
         batched = {s: [j.reply.get(timeout=600) for j in js] for s, js in jobs.items()}
@@ -1173,9 +1194,15 @@ def run_lstm_serving(card, K, n_blocks, rng) -> None:
         torch.cuda.synchronize()
         launches = K.launch_counts["affine_lif_fwd"]
         n_fwd = N_LSTM_FRAMES + 2 * N_LSTM_FRAMES
+        scans = dict(KT.launch_counts)
+        plain = profiling.counter("token_lstm.plain_scans") - plain0
         if launches != n_blocks * n_fwd or any(r["batch"] != 2 for rs in batched.values() for r in rs):
             raise AssertionError(f"lstm serving: {launches} affine_lif_fwd launches over {n_fwd} "
                                  f"forwards, batches {[r['batch'] for rs in batched.values() for r in rs]}")
+        if scans != {"token_lstm_fwd": n_fwd, "token_lstm_fwd_res": 0, "token_lstm_bwd": 0} \
+                or plain:
+            raise AssertionError(f"lstm serving: scan launches {scans}, {plain} plain scans "
+                                 f"over {n_fwd} forwards")
         diffs, counts = [], []
         for s in frames:
             for a_, b_ in zip(batched[s], alone[s]):
@@ -1198,7 +1225,8 @@ def run_lstm_serving(card, K, n_blocks, rng) -> None:
               f"{N_LSTM_FRAMES} frames in batches of 2 vs the same streams alone: detections "
               f"{counts} (limit +-{LSTM_COUNT_SLACK}), per-frame max |sorted score diff| over the "
               f"common top {diffs} (limit {LSTM_SCORE_ATOL}), carry (h, c) max diff "
-              f"{carry_err:.3g}; affine_lif_fwd launches {launches} over {n_fwd} forwards")
+              f"{carry_err:.3g}; affine_lif_fwd launches {launches}, token_lstm_fwd launches "
+              f"{scans['token_lstm_fwd']} over {n_fwd} forwards, plain scans {plain}")
         img = np.stack([frames["lstm_a"][0]])
         state = (svc._zero_state1,)
         for _ in range(3):
@@ -1210,6 +1238,209 @@ def run_lstm_serving(card, K, n_blocks, rng) -> None:
               f"{wins[0][1]:.3f} ms")
     finally:
         svc.stop()
+    return scans["token_lstm_fwd"]
+
+
+def lstm_checks():
+    """tests/test_torch_token_lstm_kernel.py as a module: the card phase
+    applies its cell-by-cell checks, shapes and limits (CARD_RTOL)."""
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                        "test_torch_token_lstm_kernel.py")
+    spec = importlib.util.spec_from_file_location("token_lstm_checks", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def check_token_lstm_kernels(KT) -> dict:
+    """C1-C3 against their plain versions cell by cell, and run free, at the
+    main paths' shapes (hidden 1024: the training window, a served frame
+    alone and a full dispatch) and at two batch tiles of odd sizes (hidden
+    256); the planted faults at the training window; two launches of C2
+    and C3 bitwise equal. Raises outside the limits; returns the largest
+    cell-by-cell gap per kernel."""
+    checks, dev = lstm_checks(), torch.device("cuda")
+    worst = dict.fromkeys(checks.CARD_RTOL, 0.0)
+    for i, shape in enumerate(checks.CARD_SHAPES):
+        gaps = checks.card_gaps(shape, SEED + i, dev)
+        print(f"token-LSTM kernels vs plain (T, B, N, H) = {shape}: "
+              + ", ".join(f"{k} {v:.3g}" for k, v in gaps.items()))
+        for k, v in gaps.items():
+            if not v < checks.CARD_RTOL[k]:
+                raise AssertionError(f"token-LSTM {shape}: {k} {v} over {checks.CARD_RTOL[k]}")
+            worst[k] = max(worst[k], v)
+    fault = checks.card_gaps(checks.CARD_SHAPES[0], SEED, dev, fault=True)
+    print(f"token-LSTM planted faults (a gate product rounded to bf16; the recurrent gradients "
+          f"unrounded) at {checks.CARD_SHAPES[0]}: "
+          + ", ".join(f"{k} {v:.3g}" for k, v in fault.items()))
+    for k in ("act", "dg", "g_state"):
+        if not fault[k] > checks.CARD_RTOL[k]:
+            raise AssertionError(f"token-LSTM fault inside the {k} limit: {fault[k]}")
+    fwd, cot = checks._card_args(checks.CARD_SHAPES[0], SEED, dev)
+    runs = []
+    for _ in range(2):
+        out = KT.token_lstm_fwd_res(*fwd)
+        runs.append(out + KT.token_lstm_bwd(out[3], out[4], fwd[7], *fwd[1:4], *cot))
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(*runs)):
+        raise AssertionError("two launches of token_lstm_fwd_res / token_lstm_bwd differ")
+    print(f"token-LSTM kernels ok at {len(checks.CARD_SHAPES)} shapes: largest gaps {worst} "
+          f"(limits {checks.CARD_RTOL}); two launches bit-equal")
+    return {"token_lstm_fwd": max(worst["act"], worst["c"]),
+            "token_lstm_fwd_res": max(worst["act"], worst["c"]),
+            "token_lstm_bwd": max(worst["dg"], worst["g_state"])}
+
+
+def lstm_cost(kernel: str, t_steps: int, bsz: int, n_tok: int, hidden: int):
+    """(FLOPs, bytes) a scan kernel must spend: three gate products a token
+    (W_hh0, W_ih1, W_hh1) of B x H x 4H, forward or reverse; bytes read and
+    written once: the weights, the state, and per row xg0 and y (forward),
+    the residuals (C2 writes, C3 reads), dy and dg (C3)."""
+    rows, g = t_steps * bsz * n_tok, 4 * hidden
+    flops = 2 * rows * hidden * g * 3
+    fixed = 3 * hidden * g * 2 + 4 * 2 * bsz * hidden * 4
+    res = rows * (2 * g * 4 + 2 * hidden * 4)
+    per = {"token_lstm_fwd": rows * (g * 4 + hidden * 2),
+           "token_lstm_fwd_res": rows * (g * 4 + hidden * 2 + 3 * hidden * 2) + res,
+           "token_lstm_bwd": res + rows * (hidden * 2 + 2 * g * 4)}[kernel]
+    return flops, fixed + per
+
+
+def profiled_device_ms(fn, make, reps: int = 2) -> float:
+    """Device (kernel) ms a call of a host-bound ``fn``, from the profiler:
+    the sum of its kernels' times (time_cuda's sleep cannot hide a host
+    whose launches fill the queue)."""
+    args = [make() for _ in range(reps)]
+    fn(*args[0])
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for a in args:
+            fn(*a)
+        torch.cuda.synchronize()
+    return sum(e.self_device_time_total for e in kernel_rows(prof)) / 1e3 / reps
+
+
+def time_token_lstm_kernels(card, KT, tl, gen) -> dict:
+    """C1-C3 per launch at the main paths' shapes beside their bound (the
+    larger of FLOPs at the bf16 peak and bytes at 3.35 TB/s) and their
+    plain versions' device time (profiler); then the whole bottleneck's
+    device time a training
+    window (TokenLSTM forward and backward: layer 0's input product, the
+    scan, the weight-gradient products) with the kernels and with the
+    plain loop. Returns the training window's row per kernel."""
+    out, card_args = {}, lstm_checks()._card_args
+    seeds = iter(range(SEED, SEED + 1000))
+    for t_steps, bsz, n_tok in LSTM_SHAPES:
+        shape = (t_steps, bsz, n_tok, LSTM_HIDDEN)
+
+        def fwd_make(shape=shape):
+            return card_args(shape, next(seeds), "cuda")[0]
+
+        def bwd_make(shape=shape):
+            fwd, cot = card_args(shape, next(seeds), "cuda")
+            _, _, _, act, cseq, _ = KT.token_lstm_fwd_res(*fwd)
+            return (act, cseq, fwd[7], *fwd[1:4], *cot)
+
+        def plain_fwd(*a, res=False):
+            return tl.token_lstm_forward_reference(a[0], [None, a[2]], [a[1], a[3]], list(a[4:6]),
+                                                   *a[6:], with_residuals=res)
+
+        rows = [("token_lstm_fwd", fwd_make, KT.token_lstm_fwd, plain_fwd)]
+        if t_steps > 1:
+            rows += [("token_lstm_fwd_res", fwd_make, KT.token_lstm_fwd_res,
+                      lambda *a: plain_fwd(*a, res=True)),
+                     ("token_lstm_bwd", bwd_make, KT.token_lstm_bwd,
+                      tl.token_lstm_backward_reference)]
+        for name, make, kern, plain in rows:
+            flops, nbytes = lstm_cost(name, *shape)
+            km = time_cuda(kern, make, nbytes, max_copies=8)
+            pm = profiled_device_ms(plain, make)
+            bm = max(flops / BF16_FLOPS, nbytes / HBM_BYTES_PER_S) * 1e3
+            print(f"[{card}] {name} (T, B, N, H) = {shape}: {km:.4f} ms (bound {bm:.4f} ms, "
+                  f"{bm / km:.1%} of bound; {flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB; "
+                  f"plain {pm:.3f} ms)")
+            if t_steps > 1:
+                out[name] = {"ms": km, "plain_ms": pm, "bound_ms": bm}
+    mod = tl.TokenLSTM(LSTM_HIDDEN).cuda()
+    g = torch.Generator().manual_seed(SEED)
+    with torch.no_grad():
+        for name, p in mod.named_parameters():
+            t = torch.empty(p.shape)
+            mod.init_param(name, t, g)
+            p.copy_(t)
+    shape = (T_TRAIN, 16, 8, 10, LSTM_HIDDEN)
+
+    def window():
+        x = torch.randn(shape, device="cuda", generator=gen).bfloat16().requires_grad_(True)
+        return x, torch.randn(shape, device="cuda", generator=gen).bfloat16()
+
+    def kernel_step(x, dy):
+        y, _ = mod(x)
+        y.backward(dy)
+
+    def plain_step(x, dy):
+        w_ih = [getattr(mod, f"l{n}_w_ih").bfloat16() for n in range(2)]
+        w_hh = [getattr(mod, f"l{n}_w_hh").bfloat16() for n in range(2)]
+        tokens = x.reshape(T_TRAIN, 16, 80, LSTM_HIDDEN).float()
+        xg0 = torch.matmul(tokens.bfloat16().float(), w_ih[0].float())
+        zeros = torch.zeros(2, 16, LSTM_HIDDEN, device="cuda")
+        y = tl.token_lstm_forward_reference(xg0, w_ih, w_hh, [mod.l0_bias, mod.l1_bias],
+                                            zeros, zeros)[0]
+        y.backward(dy.reshape(y.shape))
+
+    step_bytes = sum(lstm_cost(k, T_TRAIN, 16, 80, LSTM_HIDDEN)[1] for k in out)
+    k_step = time_cuda(kernel_step, window, step_bytes, max_copies=4)
+    p_step = profiled_device_ms(plain_step, window)
+    print(f"[{card}] the token-LSTM bottleneck's device time a training window (T={T_TRAIN}, "
+          f"B=16, 8x10, forward + backward with the weight gradients): kernels {k_step:.3f} ms, "
+          f"plain loop {p_step:.3f} ms")
+    out["step"] = {"ms": k_step, "plain_ms": p_step}
+    return out
+
+
+def lstm_train_launches(card, KT, rng) -> dict:
+    """The token-LSTM model's train step at full width (T=5, B=2) through
+    make_step_fns: each step one token_lstm_fwd_res and one token_lstm_bwd
+    launch and no plain scan. Returns the launches counted."""
+    from snn_object_detectionddp_tpu_torch.config import Config
+    from snn_object_detectionddp_tpu_torch.models.detector import Detector
+    from snn_object_detectionddp_tpu_torch.train.step import (
+        init_state, make_optimizer, make_step_fns,
+    )
+    from snn_object_detectionddp_tpu_torch.utils import profiling
+
+    cfg = Config()
+    cfg.model.bottleneck = "lstm"
+    h, w = cfg.model.image_size
+    tr = cfg.training
+    det = Detector.from_config(cfg, device="cuda")
+    params = det.init_params(torch.Generator().manual_seed(SEED + 5))
+    tx, sched = make_optimizer(tr.learning_rate, 100, tr.weight_decay, tr.grad_clip_norm,
+                               tr.pct_start)
+    state = init_state(params, tx, sched)
+    fns = make_step_fns(det, tx, sched)
+    batches = [moving_boxes_batch(rng, B_TRAIN, T_TRAIN, h, w, cfg.model.num_classes)
+               for _ in range(N_LSTM_STEPS)]
+    state, _ = fns.train_step(state, batches[0])  # warm
+    torch.cuda.synchronize()
+    before = profiling.counters()
+    t0 = time.perf_counter()
+    for batch in batches:
+        state, metrics = fns.train_step(state, batch)
+    torch.cuda.synchronize()
+    host_ms = (time.perf_counter() - t0) * 1e3 / N_LSTM_STEPS
+    after = profiling.counters()
+    got = {k: after[f"{k}.launches"] - before[f"{k}.launches"] for k in KT.KERNELS}
+    plain = after["token_lstm.plain_scans"] - before["token_lstm.plain_scans"]
+    want = {"token_lstm_fwd": 0, "token_lstm_fwd_res": N_LSTM_STEPS,
+            "token_lstm_bwd": N_LSTM_STEPS}
+    if got != want or plain:
+        raise AssertionError(f"token-LSTM train steps launched {got}, {plain} plain scans")
+    loss = float(metrics["loss"]) if isinstance(metrics, dict) and "loss" in metrics else None
+    print(f"[{card}] token-LSTM model train step (T={T_TRAIN}, B={B_TRAIN}, 480x640, bf16): "
+          f"{host_ms:.1f} ms a step on the host clock, launches {got} over {N_LSTM_STEPS} "
+          f"steps, plain scans {plain}, loss {loss}")
+    return got
 
 
 def check_png(frames, scratch) -> str:
@@ -3375,6 +3606,8 @@ def main() -> None:
     from snn_object_detectionddp_tpu_torch.kernels import affine_lif as K
     from snn_object_detectionddp_tpu_torch.kernels import build as kernel_build
     from snn_object_detectionddp_tpu_torch.kernels import lif as KL
+    from snn_object_detectionddp_tpu_torch.kernels import token_lstm as KT
+    from snn_object_detectionddp_tpu_torch.models import token_lstm as tl_mod
     from snn_object_detectionddp_tpu_torch.models.detector import (
         Detector, set_tf32_policy, tf32_policy,
     )
@@ -3394,7 +3627,7 @@ def main() -> None:
     # compiler process each, all started together ---------------------------
     t0 = time.perf_counter()
     each = kernel_build.build_all()
-    print(f"built {', '.join(K.KERNELS + KL.KERNELS)}, the PNG decoder and the raster primitives in "
+    print(f"built {', '.join(K.KERNELS + KL.KERNELS + KT.KERNELS)}, the PNG decoder and the raster primitives in "
           f"{time.perf_counter() - t0:.1f} s ("
           + ", ".join(f"{src} {sec:.1f} s" for src, sec in each.items()) + ")")
 
@@ -3489,6 +3722,7 @@ def main() -> None:
 
     train_errs = check_training_kernels(K, lif_mod, lif_shapes, gen)
     scan_errs = check_scan_kernels(KL, lif_mod, lif_shapes, gen)
+    lstm_errs = check_token_lstm_kernels(KT)
 
     # -- phase 2: the full-width serving slice -----------------------------
     svc = DetectionService(det, params, conf=0.0, max_det=100, max_batch=4,
@@ -3668,7 +3902,10 @@ def main() -> None:
     # -- the run_lif entry point and the token-LSTM model, at full width ----
     with tf32_policy("f32"):
         scan_launches = run_lif_path(KL, det, lif_shapes, gen)
-    run_lstm_serving(card, K, n_blocks, rng)
+    lstm_launches = {"token_lstm_fwd": run_lstm_serving(card, K, n_blocks, rng)}
+    torch.cuda.empty_cache()
+    lstm_launches.update({k: v for k, v in lstm_train_launches(card, KT, rng).items()
+                          if k != "token_lstm_fwd"})
     torch.cuda.empty_cache()
 
     # -- phase 4: the full-width training slice ----------------------------
@@ -3712,10 +3949,12 @@ def main() -> None:
         shutil.rmtree(scratch, ignore_errors=True)
 
     scan_ms = time_scan_kernels(card, KL, lif_mod, lif_shapes, gen)
+    lstm_ms = time_token_lstm_kernels(card, KT, tl_mod, gen)
 
     csrc = "snn_object_detectionddp_tpu_torch/csrc"
     affine = ("affine_lif.cu", "snn_object_detectionddp_tpu/kernels/affine_lif_pallas.py")
     scan = ("lif_scan.cu", "snn_object_detectionddp_tpu/kernels/lif_pallas.py")
+    lstm = ("token_lstm.cu", "snn_object_detectionddp_tpu/models/token_lstm.py")
     measured = {
         "affine_lif_fwd": (affine, 93, launches, max_err,
                            {"ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms}),
@@ -3729,6 +3968,9 @@ def main() -> None:
                              scan_ms["lif_scan_fwd_res"]),
         "lif_scan_bwd": (scan, 134, scan_launches, scan_errs["lif_scan_bwd"],
                          scan_ms["lif_scan_bwd"]),
+        # no Pallas kernel: the JAX package's lax.scan over tokens
+        **{name: (lstm, 111, lstm_launches, lstm_errs[name], lstm_ms[name])
+           for name in KT.KERNELS},
     }
     for name, (_, _, counts, _, _) in measured.items():
         if counts[name] < 1:
@@ -3743,7 +3985,7 @@ def main() -> None:
         "ms": t["ms"],
         "plain_ms": t["plain_ms"],
         "bound_ms": t["bound_ms"],
-        "bound_by": "bytes",
+        "bound_by": "the chain of NT+1 grid barriers" if source == "token_lstm.cu" else "bytes",
         "library_ms": None,
     } for name, ((source, pallas), line, counts, err, t) in measured.items()]}))
     print(card)

@@ -38,7 +38,7 @@ NVCC_FLAGS = (
 CXX_FLAGS = ("-std=c++17", "-O3", "-shared", "-fPIC", "-ffp-contract=off")
 # Headers under csrc/ that the CUDA sources include: part of their hash.
 HEADERS = ("lif_common.cuh",)
-SOURCES = ("affine_lif.cu", "lif_scan.cu", "png_decode.cpp", "raster.cpp")
+SOURCES = ("affine_lif.cu", "lif_scan.cu", "token_lstm.cu", "png_decode.cpp", "raster.cpp")
 # Link flags of a host source, after the source on the command line.
 LINK_FLAGS = {"png_decode.cpp": ("-pthread", "-lz")}
 

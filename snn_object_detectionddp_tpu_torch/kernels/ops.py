@@ -1,8 +1,8 @@
-"""The six hand-written LIF kernels as PyTorch operators (``torch.ops.snn_torch``).
+"""The hand-written kernels as PyTorch operators (``torch.ops.snn_torch``).
 
-Each kernel of csrc/affine_lif.cu and csrc/lif_scan.cu is one
-``torch.library`` custom op, so the dispatcher, ``torch.export`` and
-selective activation checkpointing see it as one operator:
+Each kernel of csrc/affine_lif.cu, csrc/lif_scan.cu and csrc/token_lstm.cu
+is one ``torch.library`` custom op, so the dispatcher, ``torch.export``
+and selective activation checkpointing see it as one operator:
 
 - ``affine_lif_fwd`` (A1; the JAX package's
   ``kernels/affine_lif_pallas.py::_fwd_kernel``): spikes, v_final and the
@@ -12,18 +12,24 @@ selective activation checkpointing see it as one operator:
 - ``lif_scan_fwd`` (B1, ``kernels/lif_pallas.py::_fwd_kernel``): spikes,
   v_final;
 - ``lif_scan_fwd_res`` (B2, ``::_fwd_res_kernel``): spikes, v_pre, v_final;
-- ``lif_scan_bwd`` (B3, ``::_bwd_kernel``): g_x, g_v0.
+- ``lif_scan_bwd`` (B3, ``::_bwd_kernel``): g_x, g_v0;
+- ``token_lstm_fwd`` (C1; replaces no Pallas kernel: the JAX package's
+  ``lax.scan`` in ``models/token_lstm.py``): y, h_fin, c_fin;
+- ``token_lstm_fwd_res`` (C2): y, h_fin, c_fin and the residuals act,
+  cseq, hseq;
+- ``token_lstm_bwd`` (C3): dg, g_h0, g_c0.
 
 Dispatch is by device, through the dispatcher's own CPU and CUDA keys: a
-CUDA tensor runs the wrapper of kernels/affine_lif.py or kernels/lif.py,
-which checks its inputs, launches the kernel (one more in its
-``launch_counts``) and raises on a refused launch; a CPU tensor runs the
-plain version of models/lif.py. A CUDA tensor never reaches a plain
+CUDA tensor runs the wrapper of kernels/affine_lif.py, kernels/lif.py or
+kernels/token_lstm.py, which checks its inputs, launches the kernel (one
+more in its ``launch_counts``) and raises on a refused launch; a CPU
+tensor runs the plain version of models/lif.py or models/token_lstm.py. A CUDA tensor never reaches a plain
 version. The fake implementations give the outputs' shapes and dtypes and
 launch nothing: ``torch.export`` traces through them. No op writes to its
 inputs; the backward's ticket and partial-row scratch is internal to its
 wrapper. The LIF constants travel as ``threshold, decay, surrogate_slope,
-reset`` (``*LIFParams``), the forwards ignoring the slope.
+reset`` (``*LIFParams``), the forwards ignoring the slope. The token-LSTM
+operators take the weights in the compute dtype (the kernels: bf16).
 
 A program saved with ``torch.export.save`` names these ops, so a process
 that loads one imports this module first (utils/export.py::load_serving
@@ -42,6 +48,7 @@ from ..models.lif import (
     lif_backward_reference,
     lif_forward_reference,
 )
+from ..models.token_lstm import token_lstm_backward_reference, token_lstm_forward_reference
 
 NAMESPACE = "snn_torch"
 
@@ -200,5 +207,86 @@ def _(v_pre, g_s, g_vfin, threshold, decay, surrogate_slope, reset):
     return _new(v_pre), _new(g_vfin)
 
 
+# -- C1: the token-LSTM scan's inference forward ---------------------------
+
+
+def _lstm_ref(x_gates0, w_hh0, w_ih1, w_hh1, bias0, bias1, h0, c0, residuals):
+    return token_lstm_forward_reference(x_gates0, [None, w_ih1], [w_hh0, w_hh1], [bias0, bias1],
+                                        h0, c0, with_residuals=residuals)
+
+
+def _lstm_fake(x_gates0, w_hh0, h0):
+    t_steps, bsz, n_tok, gates = x_gates0.shape
+    return w_hh0.new_empty((t_steps, bsz, n_tok, gates // 4)), _new(h0), _new(h0)
+
+
+@torch.library.custom_op(f"{NAMESPACE}::token_lstm_fwd", mutates_args=(), device_types="cuda")
+def token_lstm_fwd(x_gates0: Tensor, w_hh0: Tensor, w_ih1: Tensor, w_hh1: Tensor,
+                   bias0: Tensor, bias1: Tensor, h0: Tensor,
+                   c0: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    from .token_lstm import token_lstm_fwd as launch
+
+    return launch(x_gates0, w_hh0, w_ih1, w_hh1, bias0, bias1, h0, c0)
+
+
+@token_lstm_fwd.register_kernel("cpu")
+def _(x_gates0, w_hh0, w_ih1, w_hh1, bias0, bias1, h0, c0):
+    return _lstm_ref(x_gates0, w_hh0, w_ih1, w_hh1, bias0, bias1, h0, c0, False)
+
+
+@token_lstm_fwd.register_fake
+def _(x_gates0, w_hh0, w_ih1, w_hh1, bias0, bias1, h0, c0):
+    return _lstm_fake(x_gates0, w_hh0, h0)
+
+
+# -- C2: the same forward, also storing the reverse scan's residuals ----------
+
+
+@torch.library.custom_op(f"{NAMESPACE}::token_lstm_fwd_res", mutates_args=(),
+                         device_types="cuda")
+def token_lstm_fwd_res(x_gates0: Tensor, w_hh0: Tensor, w_ih1: Tensor, w_hh1: Tensor,
+                       bias0: Tensor, bias1: Tensor, h0: Tensor,
+                       c0: Tensor) -> tuple[Tensor, Tensor, Tensor, Tensor, Tensor, Tensor]:
+    from .token_lstm import token_lstm_fwd_res as launch
+
+    return launch(x_gates0, w_hh0, w_ih1, w_hh1, bias0, bias1, h0, c0)
+
+
+@token_lstm_fwd_res.register_kernel("cpu")
+def _(x_gates0, w_hh0, w_ih1, w_hh1, bias0, bias1, h0, c0):
+    return _lstm_ref(x_gates0, w_hh0, w_ih1, w_hh1, bias0, bias1, h0, c0, True)
+
+
+@token_lstm_fwd_res.register_fake
+def _(x_gates0, w_hh0, w_ih1, w_hh1, bias0, bias1, h0, c0):
+    y, h, c = _lstm_fake(x_gates0, w_hh0, h0)
+    rows = tuple(x_gates0.shape[:3])
+    return (y, h, c, _new(x_gates0, (2, *rows, x_gates0.shape[3])),
+            _new(x_gates0, (2, *rows, y.shape[3])), _new(y, (3, *y.shape)))
+
+
+# -- C3: the token-LSTM scan's reverse scan -----------------------------------
+
+
+@torch.library.custom_op(f"{NAMESPACE}::token_lstm_bwd", mutates_args=(), device_types="cuda")
+def token_lstm_bwd(act: Tensor, cseq: Tensor, c0: Tensor, w_hh0: Tensor, w_ih1: Tensor,
+                   w_hh1: Tensor, dy: Tensor, g_hfin: Tensor,
+                   g_cfin: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    from .token_lstm import token_lstm_bwd as launch
+
+    return launch(act, cseq, c0, w_hh0, w_ih1, w_hh1, dy, g_hfin, g_cfin)
+
+
+@token_lstm_bwd.register_kernel("cpu")
+def _(act, cseq, c0, w_hh0, w_ih1, w_hh1, dy, g_hfin, g_cfin):
+    return token_lstm_backward_reference(act, cseq, c0, w_hh0, w_ih1, w_hh1, dy, g_hfin, g_cfin)
+
+
+@token_lstm_bwd.register_fake
+def _(act, cseq, c0, w_hh0, w_ih1, w_hh1, dy, g_hfin, g_cfin):
+    return _new(act), _new(g_hfin), _new(g_cfin)
+
+
 OPS = (affine_lif_fwd, affine_lif_fwd_res, affine_lif_bwd,
-       lif_scan_fwd, lif_scan_fwd_res, lif_scan_bwd)
+       lif_scan_fwd, lif_scan_fwd_res, lif_scan_bwd,
+       token_lstm_fwd, token_lstm_fwd_res, token_lstm_bwd)

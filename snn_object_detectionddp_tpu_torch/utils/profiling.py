@@ -19,7 +19,8 @@ The port's counterpart of the JAX package's ``utils/profiling.py``:
 
 Span names follow the layers: ``serve.*`` (serve.py), ``model.*``
 (models/detector.py, models/unet.py), ``train.*`` (train/step.py); the
-counters ``serve.*`` and ``nms.sweeps`` (ops/nms.py).
+counters ``serve.*``, ``nms.sweeps`` (ops/nms.py) and
+``token_lstm.plain_scans`` (models/token_lstm.py).
 """
 
 from __future__ import annotations
@@ -192,13 +193,17 @@ def counter(name: str) -> int:
 
 def counters() -> dict:
     """A snapshot of every counter, with the hand kernels' launches and
-    empty-problem skips (``kernels/affine_lif.py``, ``kernels/lif.py``) as
-    ``<kernel>.launches`` / ``<kernel>.skipped_empty``."""
-    from ..kernels import affine_lif, lif
+    empty-problem skips (``kernels/affine_lif.py``, ``kernels/lif.py``,
+    ``kernels/token_lstm.py``) as ``<kernel>.launches`` /
+    ``<kernel>.skipped_empty``, and ``token_lstm.plain_scans`` (scans that
+    ran the plain loop on a CUDA tensor, models/token_lstm.py) always
+    present."""
+    from ..kernels import affine_lif, lif, token_lstm
 
     with _count_lock:
         out = dict(_counts)
-    for mod in (affine_lif, lif):
+    out.setdefault("token_lstm.plain_scans", 0)
+    for mod in (affine_lif, lif, token_lstm):
         out.update({f"{k}.launches": v for k, v in mod.launch_counts.items()})
     out.update({f"{k}.skipped_empty": v for k, v in affine_lif.skipped_empty.items()})
     return out

@@ -46,7 +46,8 @@ def test_port_sources_found():
     assert "scripts/torch_parallel_cards.py" in names
     assert "snn_object_detectionddp_tpu_torch/train/step.py" in names
     assert "snn_object_detectionddp_tpu_torch/losses/detection.py" in names
-    for new in ("kernels/lif.py", "kernels/build.py", "models/token_lstm.py", "evals/map.py",
+    for new in ("kernels/lif.py", "kernels/build.py", "kernels/token_lstm.py",
+                "models/token_lstm.py", "evals/map.py",
                 "evals/validator.py", "evals/__init__.py", "data/dsec.py", "data/png.py",
                 "data/native.py", "data/pipeline.py", "data/synthetic.py", "data/classes.py",
                 "main.py", "eval_2.py", "data/resize.py", "utils/yaml_subset.py",
@@ -360,11 +361,15 @@ def test_evaluation_runs_on_the_detectors_device():
 def test_kernel_sources_are_in_the_package():
     from snn_object_detectionddp_tpu_torch.kernels import build
 
-    assert set(build.SOURCES) == {"affine_lif.cu", "lif_scan.cu", "png_decode.cpp", "raster.cpp"}
+    assert set(build.SOURCES) == {"affine_lif.cu", "lif_scan.cu", "token_lstm.cu", "png_decode.cpp",
+                                  "raster.cpp"}
     for name in (*build.SOURCES, *build.HEADERS):
         assert (build.CSRC / name).is_file(), name
     text = (build.CSRC / "lif_scan.cu").read_text()
     for entry in ("lif_scan_fwd", "lif_scan_fwd_res", "lif_scan_bwd"):
+        assert f'extern "C" int {entry}(' in text
+    text = (build.CSRC / "token_lstm.cu").read_text()
+    for entry in ("token_lstm_fwd", "token_lstm_fwd_res", "token_lstm_bwd"):
         assert f'extern "C" int {entry}(' in text
 
 

@@ -26,6 +26,7 @@ from snn_object_detectionddp_tpu_torch import config as tconfig
 from snn_object_detectionddp_tpu_torch.kernels import affine_lif as K
 from snn_object_detectionddp_tpu_torch.kernels import lif as KL
 from snn_object_detectionddp_tpu_torch.kernels import ops
+from snn_object_detectionddp_tpu_torch.kernels import token_lstm as KT
 from snn_object_detectionddp_tpu_torch.models.detector import Detector
 from snn_object_detectionddp_tpu_torch.models.layers import SpikingConvBlock
 from snn_object_detectionddp_tpu_torch.models.lif import LIFParams
@@ -69,8 +70,8 @@ def _op(case):
 
 def test_six_operators_in_one_namespace():
     names = {op._qualname for op in ops.OPS}
-    assert names == {f"snn_torch::{n}" for n in (*K.KERNELS, *KL.KERNELS)}
-    for name in (*K.KERNELS, *KL.KERNELS):
+    assert names == {f"snn_torch::{n}" for n in (*K.KERNELS, *KL.KERNELS, *KT.KERNELS)}
+    for name in (*K.KERNELS, *KL.KERNELS, *KT.KERNELS):
         assert hasattr(torch.ops.snn_torch, name)
 
 
